@@ -1,1 +1,1 @@
-"""Applications of Algorithm 1 (kNN classification)."""
+"""Applications of Algorithm 1 (kNN classification, user-based CF)."""

@@ -9,12 +9,16 @@ order (K+1), ``counts`` the points per bucket.
 Segment sums are deterministic: the rows are put in ``perm`` order and each
 bucket's run is summed by ``torch.segment_reduce``, never by a float
 ``index_add_``, whose atomics on the card add in another order on every
-run.  Counts and label histograms are integer ``bincount``s, exact in any
+run.  Bucket counts are read off the sorted ids by ``searchsorted``, and
+``segment_reduce`` skips its checks of the lengths (``unsafe=True``: they
+come from the sort and sum to N by construction), so none of this waits
+for the card.  Label histograms are integer ``bincount``s, exact in any
 order.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Sequence
 
 import torch
 
@@ -45,16 +49,26 @@ class AggregatedData:
 
 def _run_sums(rows: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
     """[N, ...] rows in bucket order, [K] run lengths -> [K, ...] sums."""
-    return torch.segment_reduce(rows, "sum", lengths=counts, axis=0)
+    return torch.segment_reduce(rows, "sum", lengths=counts, axis=0,
+                                unsafe=True)
 
 
 def _bucket_order(
     ids: torch.Tensor, n_buckets: int
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """[N] bucket ids -> ([N] int64 stable sort order, [K] int64 counts)."""
-    ids64 = ids.long()
-    return (torch.sort(ids64, stable=True).indices,
-            torch.bincount(ids64, minlength=n_buckets))
+    """[N] bucket ids in [0, K) -> ([N] int64 stable sort order, [K] int64
+    counts), with no wait for the card."""
+    sorted_ids, order = torch.sort(ids.long(), stable=True)
+    bounds = torch.arange(n_buckets + 1, device=ids.device)
+    return order, torch.searchsorted(sorted_ids, bounds).diff()
+
+
+def bucket_offsets(counts: torch.Tensor) -> torch.Tensor:
+    """[K] counts -> [K+1] int32 bucket starts in sorted order."""
+    return torch.cat([
+        torch.zeros(1, dtype=counts.dtype, device=counts.device),
+        torch.cumsum(counts, dim=0),
+    ]).to(torch.int32)
 
 
 def segment_sum(
@@ -62,8 +76,7 @@ def segment_sum(
 ) -> torch.Tensor:
     """[N, ...] -> [K, ...] per-bucket sums, in the same order on every
     run: rows in stable bucket order, each run summed in index order."""
-    order, counts = _bucket_order(ids, n_buckets)
-    return _run_sums(values[order], counts)
+    return segment_sums((values,), ids, n_buckets)[2][0]
 
 
 def _aggregate(
@@ -75,15 +88,11 @@ def _aggregate(
     rows = data.float()[order]
     sums = _run_sums(rows, counts)
     means = sums / torch.clamp_min(counts[:, None].float(), 1.0)
-    offsets = torch.cat([
-        torch.zeros(1, dtype=torch.int64, device=ids.device),
-        torch.cumsum(counts, dim=0),
-    ]).to(torch.int32)
     agg = AggregatedData(
         means=means.to(data.dtype),
         counts=counts.to(torch.int32),
         perm=order.to(torch.int32),
-        offsets=offsets,
+        offsets=bucket_offsets(counts),
         bucket_of=ids.to(torch.int32),
     )
     return agg, sums, rows
@@ -103,6 +112,16 @@ def aggregate_with_moments(
     for ``bucket_spread``): the same sort and gather serve all three."""
     agg, sums, rows = _aggregate(data, ids, n_buckets)
     return agg, sums, _run_sums(rows * rows, agg.counts)
+
+
+def segment_sums(
+    values: Sequence[torch.Tensor], ids: torch.Tensor, n_buckets: int
+) -> tuple[torch.Tensor, torch.Tensor, list[torch.Tensor]]:
+    """Per-bucket sums of several [N, ...] arrays from one stable sort of
+    the ids and one gather each: ([N] int64 order, [K] int64 counts, the
+    [K, ...] sums of each array, in the order of ``values``)."""
+    order, counts = _bucket_order(ids, n_buckets)
+    return order, counts, [_run_sums(v[order], counts) for v in values]
 
 
 # ---------------------------------------------------------------------------
@@ -128,6 +147,16 @@ def bucket_spread(
     var = torch.clamp_min(sumsq / n - mean * mean, 0.0)
     spread = var.sum(dim=-1)
     return torch.where(counts > 0, spread, torch.inf)
+
+
+def centered_second_moment(
+    s: torch.Tensor, s2: torch.Tensor, c: torch.Tensor
+) -> torch.Tensor:
+    """Elementwise sum of (x - mean)^2 = s2 - s^2 / c, clipped to >= 0, from
+    parallel additive statistics (sum, sum of squares, count).  Cells with
+    c == 0 carry no mass and give 0."""
+    n = torch.clamp_min(c, 1.0)
+    return torch.clamp_min(s2 - (s * s) / n, 0.0)
 
 
 def histogram_dispersion(hist: torch.Tensor) -> torch.Tensor:

@@ -1,2 +1,2 @@
-"""The kNN kernels: hand-written CUDA for Hopper, plain PyTorch versions in
-``ref``, device dispatch in ``ops``."""
+"""The kNN, CF and LSH kernels: hand-written CUDA for Hopper, plain PyTorch
+versions in ``ref``, device dispatch in ``ops``."""

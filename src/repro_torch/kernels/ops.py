@@ -1,4 +1,5 @@
-"""Public entry points of the four kNN kernels, dispatched by tensor device.
+"""Public entry points of the kNN, CF and LSH kernels, dispatched by tensor
+device.
 
 A CUDA tensor goes to the hand-written CUDA kernel, which launches or
 raises; a CPU tensor goes to the plain version in ``ref``.  Nothing sends a
@@ -16,8 +17,11 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.candidate_topk import candidate_topk_cuda
+from repro_torch.kernels.cf_refine import cf_refine_cuda
+from repro_torch.kernels.cf_weights import cf_weights_cuda
 from repro_torch.kernels.distance_topk import distance_topk_cuda
 from repro_torch.kernels.knn_distance import knn_distance_cuda
+from repro_torch.kernels.lsh_hash import lsh_hash_cuda
 from repro_torch.kernels.refine_distances import refine_distances_cuda
 
 KERNELS = {
@@ -25,6 +29,9 @@ KERNELS = {
     "candidate_topk": candidate_topk_cuda,
     "knn_distance": knn_distance_cuda,
     "refine_distances": refine_distances_cuda,
+    "lsh_hash": lsh_hash_cuda,
+    "cf_weights": cf_weights_cuda,
+    "cf_refine": cf_refine_cuda,
 }
 
 
@@ -125,3 +132,38 @@ def refine_distances(
     if _on_card(queries):
         return refine_distances_cuda(queries, train_x, idx, valid)
     return ref.refine_distances(queries, train_x, idx, valid)
+
+
+@_probed("lsh_hash")
+def lsh_hash(data: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+             width: float) -> torch.Tensor:
+    """Fused projection + floor p-stable hash, [N,H] int32."""
+    if _on_card(data):
+        return lsh_hash_cuda(data, a, b, width)
+    return ref.lsh_hash(data, a, b, width)
+
+
+@_probed("cf_weights")
+def cf_weights(
+    active: torch.Tensor, active_mask: torch.Tensor,
+    users: torch.Tensor, users_mask: torch.Tensor,
+) -> torch.Tensor:
+    """Masked Pearson weight matrix [Q,U]."""
+    if _on_card(active):
+        return cf_weights_cuda(active, active_mask, users, users_mask)
+    return ref.cf_weights(active, active_mask, users, users_mask)
+
+
+@_probed("cf_refine")
+def cf_refine(
+    active: torch.Tensor, active_mask: torch.Tensor,
+    ratings: torch.Tensor, mask: torch.Tensor,
+    idx: torch.Tensor, use: torch.Tensor,
+    *, shrink: float,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gather-free CF refinement: (w_ref [Q,B], num_delta, den_delta)."""
+    if _on_card(active):
+        return cf_refine_cuda(active, active_mask, ratings, mask, idx, use,
+                              shrink=shrink)
+    return ref.cf_refine(active, active_mask, ratings, mask, idx, use,
+                         shrink=shrink)

@@ -3,7 +3,8 @@
 Inputs are made once with numpy from a seed and handed to the JAX package and
 to the port, so both sides see the same bits; outputs come back as numpy.
 Tolerances are those of the reference's own kernel tests
-(``tests/test_kernels.py``): 1e-4 relative and absolute on distances.
+(``tests/test_kernels.py``): 1e-4 relative and absolute on distances, 2e-4
+on CF weights and sums.
 Integer outputs must be equal, except where two candidates' distances are
 within that tolerance of each other (a near-tie: summation order alone can
 swap them); such slots are returned by name so a test can bound them.
@@ -54,6 +55,16 @@ def candidates(seed, q, m, k, seeded):
         return d, lab, None, None
     init_d = np.sort((r.random((q, k)) * 10).astype(np.float32), axis=1)
     return d, lab, init_d, r.integers(0, 7, (q, k)).astype(np.int32)
+
+
+def cf_inputs(seed, qn, un, ni, density=0.3):
+    """Active and neighbour ratings (0..5 stars where rated) and 0/1
+    masks, as the reference's CF kernel tests make them."""
+    r = rng(seed)
+    stars = r.integers(0, 6, (qn + un, ni)).astype(np.float32)
+    m = (r.random((qn + un, ni)) < density).astype(np.float32)
+    x = stars * m
+    return x[:qn], m[:qn], x[qn:], m[qn:]
 
 
 def assert_close(got, want, *, rtol=RTOL, atol=ATOL, err_msg=""):

@@ -16,13 +16,16 @@ from repro.core import engine as jengine
 from repro.core import lsh as _jlsh
 from repro.core import refine as jrefine
 from repro.data.synthetic import make_mfeat_like as jmake_mfeat_like
+from repro.data.synthetic import make_netflix_like as jmake_netflix_like
 from repro_torch import convert
 from repro_torch.core import aggregate as agg
 from repro_torch.core import correlation as corr
 from repro_torch.core import engine
 from repro_torch.core import lsh
 from repro_torch.core import refine
-from repro_torch.data.synthetic import make_mfeat_like
+from repro_torch.data.synthetic import (
+    holdout_split, make_mfeat_like, make_netflix_like,
+)
 from repro_torch.obs.trace import Tracer, current_tracer, use_tracer
 
 jx = jnp.asarray
@@ -231,6 +234,38 @@ def test_segment_sum_is_the_same_on_every_run():
     assert_close(one, want, rtol=1e-5, atol=1e-5)
 
 
+def test_segment_sums_share_one_sort():
+    """Several arrays summed from one sort: each equals its own segment_sum,
+    and the order and counts are those of aggregate_by_bucket."""
+    k = 12
+    x, ids = _bucketed(13, 300, 10, k, empty=(0, 5))
+    y = normal(rng(14), 300, 4)
+    order, counts, (sx, sy) = agg.segment_sums((th(x), th(y)), th(ids), k)
+    assert torch.equal(sx, agg.segment_sum(th(x), th(ids), k))
+    assert torch.equal(sy, agg.segment_sum(th(y), th(ids), k))
+    ref = agg.aggregate_by_bucket(th(x), th(ids), k)
+    assert torch.equal(order.to(torch.int32), ref.perm)
+    assert torch.equal(counts.to(torch.int32), ref.counts)
+    assert torch.equal(agg.bucket_offsets(counts), ref.offsets)
+    assert_close(sy, jax.ops.segment_sum(jx(y), jx(ids), num_segments=k),
+                 rtol=1e-5, atol=1e-5)
+
+
+def test_centered_second_moment_parity():
+    r = rng(15)
+    x = normal(r, 200, 9) * 2 + 3
+    ids = r.integers(0, 8, 200).astype(np.int32)
+    ids[ids == 6] = 7                                  # bucket 6 is empty
+    mask = (r.random((200, 9)) < 0.5).astype(np.float32)
+    s, s2, c = (np.asarray(jax.ops.segment_sum(jx(v), jx(ids),
+                                               num_segments=8))
+                for v in (x * mask, x * x * mask, mask))
+    got = np_of(agg.centered_second_moment(th(s), th(s2), th(c)))
+    assert_close(got, jagg.centered_second_moment(jx(s), jx(s2), jx(c)),
+                 rtol=1e-5, atol=1e-5)
+    assert (got >= 0).all() and (got[6] == 0).all()
+
+
 # ---------------------------------------------------------------------------
 # ranking and refinement selection, batched over queries
 # ---------------------------------------------------------------------------
@@ -366,3 +401,38 @@ def test_make_mfeat_like_is_seeded_and_shaped():
     jx1, _ = jmake_mfeat_like(jax.random.PRNGKey(3), n_points=500,
                               n_features=17, n_classes=4, modes_per_class=3)
     assert float(x1.std()) == pytest.approx(float(jnp.std(jx1)), rel=0.15)
+
+
+def test_make_netflix_like_is_seeded_and_shaped():
+    kw = dict(n_users=400, n_items=150, density=0.1, device="cpu")
+    r1, m1 = make_netflix_like(torch.Generator().manual_seed(3), **kw)
+    r2, m2 = make_netflix_like(torch.Generator().manual_seed(3), **kw)
+    assert torch.equal(r1, r2) and torch.equal(m1, m2)
+    assert r1.shape == m1.shape == (400, 150)
+    assert r1.dtype == m1.dtype == torch.float32
+    rated = np_of(r1)[np_of(m1) == 1]
+    assert set(np.unique(rated)) <= {1.0, 2.0, 3.0, 4.0, 5.0}
+    assert (np_of(r1)[np_of(m1) == 0] == 0).all()
+    assert set(np.unique(np_of(m1))) == {0.0, 1.0}
+    # the same distribution as the reference, drawn with other bits: mean
+    # density, the Zipf head more rated than the tail, the star mean
+    jr, jm = jmake_netflix_like(jax.random.PRNGKey(3), n_users=400,
+                                n_items=150, density=0.1)
+    jr, jm = np.asarray(jr), np.asarray(jm)
+    assert float(m1.mean()) == pytest.approx(jm.mean(), rel=0.1)
+    assert float(m1.mean()) == pytest.approx(0.1, rel=0.1)
+    assert np_of(m1)[:, :10].mean() > 3 * np_of(m1)[:, -50:].mean()
+    assert rated.mean() == pytest.approx(jr[jm == 1].mean(), abs=0.15)
+
+
+def test_holdout_split_partitions_the_mask():
+    _, m = make_netflix_like(torch.Generator().manual_seed(4), n_users=300,
+                             n_items=100, density=0.2, device="cpu")
+    train, test = holdout_split(torch.Generator().manual_seed(5), m, 0.2,
+                                device="cpu")
+    assert torch.equal(train + test, m)
+    assert not bool((train * test).any())
+    assert float(test.sum() / m.sum()) == pytest.approx(0.2, abs=0.03)
+    again = holdout_split(torch.Generator().manual_seed(5), m, 0.2,
+                          device="cpu")
+    assert torch.equal(again[1], test)

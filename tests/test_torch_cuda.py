@@ -15,10 +15,15 @@ import pytest
 torch = pytest.importorskip("torch")  # the port's tests need PyTorch
 
 from _torch_parity import (
-    assert_close, assert_topk_match, candidates, normal, rng, th, topk_inputs,
+    assert_close, assert_topk_match, candidates, cf_inputs, normal, rng, th,
+    topk_inputs,
 )
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.cf_refine import cf_refine_cuda
 from repro_torch.kernels.distance_topk import distance_topk_cuda
+from repro_torch.kernels.lsh_hash import lsh_hash_cuda
+
+CF_TOL = 2e-4  # tests/test_kernels.py:63,317
 
 
 @pytest.fixture
@@ -84,6 +89,51 @@ def test_cuda_refine_distances(cuda, q, n, d, b):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("qn,un,ni", [(16, 32, 20), (64, 130, 64),
+                                      (5, 7, 300), (70, 300, 1777)])
+def test_cuda_cf_weights(cuda, qn, un, ni):
+    args = _on(cuda, *cf_inputs(qn + un + ni, qn, un, ni))
+    assert_close(ops.cf_weights(*args), ref.cf_weights(*args), rtol=CF_TOL,
+                 atol=CF_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qn,un,ni,b,use_frac", [
+    (4, 30, 25, 7, 0.6), (9, 64, 130, 17, 0.6), (3, 50, 2100, 300, 0.9),
+    (2, 20, 40, 6, 0.0), (5, 10, 33, 0, 1.0),
+])
+def test_cuda_cf_refine(cuda, qn, un, ni, b, use_frac):
+    r = rng(qn + un + ni + b)
+    a, am, u, um = cf_inputs(qn * 100 + b, qn, un, ni)
+    idx = r.integers(-2, un + 2, (qn, b)).astype(np.int32)
+    args = _on(cuda, a, am, u, um, idx, r.random((qn, b)) < use_frac)
+    before = cf_refine_cuda.launches
+    got = ops.cf_refine(*args, shrink=8.0)
+    assert cf_refine_cuda.launches == before + 1
+    want = ref.cf_refine(*args, shrink=8.0)
+    for g, w, name in zip(got, want, ("w_ref", "num_delta", "den_delta")):
+        assert_close(g, w, rtol=CF_TOL, atol=CF_TOL, err_msg=name)
+    unused = ~args[5].cpu().numpy()
+    assert (got[0].cpu().numpy()[unused] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,h", [(64, 16, 4), (200, 217, 6), (33, 8, 1),
+                                   (40_000, 217, 4), (300, 17_700, 4),
+                                   (500, 3000, 8)])
+def test_cuda_lsh_hash(cuda, n, d, h):
+    r = rng(n + d + h)
+    x, a, b = _on(cuda, normal(r, n, d), normal(r, d, h),
+                  (r.random(h) * 4.0).astype(np.float32))
+    before = lsh_hash_cuda.launches
+    got = ops.lsh_hash(x, a, b, 4.0)
+    assert lsh_hash_cuda.launches == before + 1
+    # floor() at a bucket border: off by one on under 0.1 % of entries
+    diff = (got.long() - ref.lsh_hash(x, a, b, 4.0).long()).abs()
+    assert int(diff.max()) <= 1 and float((diff > 0).float().mean()) < 1e-3
+
+
+@pytest.mark.cuda
 def test_cuda_kernels_refuse_what_they_do_not_take(cuda):
     r = rng(0)
     qs, ps = _on(cuda, normal(r, 4, 8), normal(r, 10, 8))
@@ -94,3 +144,16 @@ def test_cuda_kernels_refuse_what_they_do_not_take(cuda):
         ops.knn_distance(qs, ps.t().contiguous().t())
     with pytest.raises(ValueError, match="on cpu"):
         ops.knn_distance(qs, ps.cpu())
+    with pytest.raises(ValueError, match="hashes"):
+        ops.lsh_hash(qs, normal_on(cuda, 8, 9), normal_on(cuda, 9), 4.0)
+    a, am, u, um = _on(cuda, *cf_inputs(0, 4, 10, 8))
+    idx = torch.zeros((4, 3), dtype=torch.int64, device=cuda)
+    use = torch.ones((4, 3), dtype=torch.bool, device=cuda)
+    with pytest.raises(TypeError, match="idx"):
+        ops.cf_refine(a, am, u, um, idx, use, shrink=8.0)
+    with pytest.raises(ValueError, match="users_mask"):
+        ops.cf_weights(a, am, u, um[:, :5].contiguous())
+
+
+def normal_on(dev, *shape):
+    return th(normal(rng(len(shape)), *shape)).to(dev)

@@ -15,10 +15,14 @@ import pytest
 torch = pytest.importorskip("torch")  # the port's tests need PyTorch
 
 import repro_torch
-from repro_torch.apps import knn
-from repro_torch.convert import knn_aggregates_from_numpy, lsh_params_from_numpy
+from repro_torch.apps import cf, knn
+from repro_torch.convert import (
+    cf_aggregates_from_numpy, knn_aggregates_from_numpy, lsh_params_from_numpy,
+)
 from repro_torch.core import lsh
-from repro_torch.data.synthetic import make_mfeat_like
+from repro_torch.data.synthetic import (
+    holdout_split, make_mfeat_like, make_netflix_like,
+)
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
@@ -31,7 +35,8 @@ def _modules():
 
 def test_every_module_imports_without_jax_or_the_reference():
     modules = _modules()
-    assert "repro_torch.apps.knn" in modules and len(modules) >= 20
+    assert "repro_torch.apps.knn" in modules and len(modules) >= 24
+    assert "repro_torch.apps.cf" in modules
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"
@@ -82,7 +87,24 @@ def _entry_points():
     y = np.zeros(20, np.int32)
     cfg = lsh.LSHConfig(n_hashes=2, n_buckets=4)
     common = dict(k=3, n_classes=2)
+    r = np.tile(np.array([[1, 0, 5], [3, 2, 0]], np.float32), (10, 1))
+    m = (r > 0).astype(np.float32)
+    k4 = np.zeros((4, 3))
     return {
+        "cf.run_exact": lambda **kw: cf.run_exact(r, m, r[:2], m[:2], **kw),
+        "cf.run_accurateml": lambda **kw: cf.run_accurateml(
+            r, m, r[:2], m[:2], compression_ratio=5.0, eps_max=0.1,
+            lsh_generator=torch.Generator(), **kw),
+        "cf.run_sampled": lambda **kw: cf.run_sampled(
+            r, m, r[:2], m[:2], sample_frac=0.5,
+            sample_generator=torch.Generator(), **kw),
+        "make_netflix_like": lambda **kw: make_netflix_like(
+            torch.Generator(), n_users=20, n_items=3, **kw),
+        "holdout_split": lambda **kw: holdout_split(torch.Generator(), m,
+                                                    **kw),
+        "cf_aggregates_from_numpy": lambda **kw: cf_aggregates_from_numpy(
+            k4, np.zeros(4), np.arange(20), np.zeros(5), np.zeros(20), k4,
+            k4, k4, k4, k4, **kw),
         "run_exact": lambda **kw: knn.run_exact(x, y, x[:2], **common, **kw),
         "run_accurateml": lambda **kw: knn.run_accurateml(
             x, y, x[:2], compression_ratio=5.0, eps_max=0.1,

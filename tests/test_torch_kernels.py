@@ -1,4 +1,4 @@
-"""The port's four kNN kernels against the JAX package's.
+"""The port's kNN, CF and LSH kernels against the JAX package's.
 
 On the CPU the port's ``kernels.ops`` runs the plain PyTorch versions; they
 are held against the JAX Pallas kernel bodies in interpret mode and against
@@ -12,15 +12,19 @@ import pytest
 torch = pytest.importorskip("torch")  # the port's tests need PyTorch
 
 from _torch_parity import (
-    BIG, assert_close, assert_topk_match, candidates, normal, np_of, rng, th,
-    topk_inputs,
+    BIG, assert_close, assert_topk_match, candidates, cf_inputs, normal,
+    np_of, rng, th, topk_inputs,
 )
 from repro.kernels import ref as _jref
 from repro.kernels import topk_stream as jts
+from repro.kernels.cf_refine import cf_refine_pallas
+from repro.kernels.cf_weights import cf_weights_pallas
 from repro.kernels.distance_topk import distance_topk_pallas
 from repro.kernels.knn_distance import knn_distance_pallas
+from repro.kernels.lsh_hash import lsh_hash_pallas
 from repro.kernels.refine_distances import refine_distances_pallas
 from repro.kernels.topk_stream import candidate_topk_pallas
+from repro_torch.core import lsh
 from repro_torch.kernels import ops, ref, topk_stream
 from repro_torch.kernels.candidate_topk import candidate_topk_cuda
 from repro_torch.kernels.distance_topk import distance_topk_cuda
@@ -36,6 +40,13 @@ class jref:
     distance_topk = jax.jit(_jref.distance_topk, static_argnames=("k", "metric"))
     candidate_topk = jax.jit(_jref.candidate_topk, static_argnames=("k",))
     refine_distances = jax.jit(_jref.refine_distances)
+    cf_weights = jax.jit(_jref.cf_weights)
+    cf_refine = jax.jit(_jref.cf_refine, static_argnames=("shrink",))
+    lsh_hash = jax.jit(_jref.lsh_hash, static_argnames=("width",))
+
+# CF weights and sums: the reference's own kernel tolerance
+# (tests/test_kernels.py:63,317), fp32 sums over items in another order.
+CF_TOL = 2e-4
 
 
 # ---------------------------------------------------------------------------
@@ -242,6 +253,104 @@ def test_refine_distances_clips_indices():
 
 
 # ---------------------------------------------------------------------------
+# cf_weights, cf_refine
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("qn,un,ni", [(16, 32, 20), (64, 130, 64),
+                                      (5, 7, 300)])
+def test_cf_weights_parity(qn, un, ni):
+    arrays = cf_inputs(qn * 31 + un + ni, qn, un, ni)
+    got = ops.cf_weights(*map(th, arrays))
+    assert got.shape == (qn, un) and got.dtype == torch.float32
+    jarrays = [jx(a) for a in arrays]
+    assert_close(got, jref.cf_weights(*jarrays), rtol=CF_TOL, atol=CF_TOL)
+    assert_close(got, cf_weights_pallas(*jarrays, tq=64, tu=64,
+                                        interpret=True),
+                 rtol=CF_TOL, atol=CF_TOL)
+    assert (np.abs(np_of(got)) <= 1 + CF_TOL).all()
+
+
+def _refine_case(qn, un, ni, b, use_frac):
+    a, am, u, um = cf_inputs(qn * 100 + b, qn, un, ni)
+    r = rng(qn + un + b)
+    idx = r.integers(0, un, (qn, b)).astype(np.int32)
+    return a, am, u, um, idx, r.random((qn, b)) < use_frac
+
+
+@pytest.mark.parametrize("qn,un,ni,b", [(4, 30, 25, 7), (9, 64, 130, 17)])
+def test_cf_refine_parity(qn, un, ni, b):
+    arrays = _refine_case(qn, un, ni, b, 0.6)
+    got = ops.cf_refine(*map(th, arrays), shrink=8.0)
+    assert [tuple(g.shape) for g in got] == [(qn, b), (qn, ni), (qn, ni)]
+    jarrays = [jx(a) for a in arrays]
+    for want in (jref.cf_refine(*jarrays, shrink=8.0),
+                 cf_refine_pallas(*jarrays, shrink=8.0, interpret=True)):
+        for g, w, name in zip(got, want, ("w_ref", "num_delta",
+                                          "den_delta")):
+            assert_close(g, w, rtol=CF_TOL, atol=CF_TOL, err_msg=name)
+    w = np_of(got[0])
+    assert (w[~arrays[5]] == 0).all()
+
+
+def test_cf_refine_all_padding_is_zero():
+    """No used slot: zero weights and zero sums, never NaN."""
+    a, am, u, um, idx, _ = _refine_case(3, 15, 15, 5, 0.0)
+    use = np.zeros((3, 5), bool)
+    w, num, den = ops.cf_refine(*map(th, (a, am, u, um, idx, use)),
+                                shrink=8.0)
+    assert np.isfinite(np_of(w)).all() and (np_of(w) == 0).all()
+    assert (np_of(num) == 0).all() and (np_of(den) == 0).all()
+    jw, jnum, jden = cf_refine_pallas(*map(jx, (a, am, u, um, idx, use)),
+                                      shrink=8.0, interpret=True)
+    assert (np.asarray(jw) == 0).all() and (np.asarray(jnum) == 0).all()
+
+
+def test_cf_refine_clips_indices():
+    """Out-of-range indices read the first or last user, as the TPU kernel
+    clips them."""
+    a, am, u, um, _, _ = _refine_case(3, 6, 20, 4, 1.0)
+    idx = np.array([[-3, 0, 5, 9]] * 3, np.int32)
+    use = np.ones((3, 4), bool)
+    w = np_of(ops.cf_refine(*map(th, (a, am, u, um, idx, use)),
+                            shrink=8.0)[0])
+    want = cf_refine_pallas(*map(jx, (a, am, u, um, idx, use)), shrink=8.0,
+                            interpret=True)[0]
+    assert_close(w, want, rtol=CF_TOL, atol=CF_TOL)
+    np.testing.assert_array_equal(w[:, 0], w[:, 1])
+    np.testing.assert_array_equal(w[:, 2], w[:, 3])
+
+
+# ---------------------------------------------------------------------------
+# lsh_hash
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n,d,h", [(64, 16, 4), (200, 217, 6), (33, 8, 1)])
+def test_lsh_hash_parity(n, d, h):
+    r = rng(n + d + h)
+    x, a = normal(r, n, d), normal(r, d, h)
+    b = (r.random(h) * 4.0).astype(np.float32)
+    got = ops.lsh_hash(th(x), th(a), th(b), 4.0)
+    assert got.shape == (n, h) and got.dtype == torch.int32
+    for want in (jref.lsh_hash(jx(x), jx(a), jx(b), width=4.0),
+                 lsh_hash_pallas(jx(x), jx(a), jx(b), 4.0, tn=64,
+                                 interpret=True)):
+        # floor() at a bucket border: off by one on under 0.1 % of entries,
+        # the reference's own rule (tests/test_kernels.py:47-50)
+        diff = np.abs(np_of(got).astype(np.int64) - np.asarray(want))
+        assert diff.max() <= 1 and (diff > 0).mean() < 1e-3
+
+
+def test_lsh_hash_is_raw_hashes():
+    """ops.lsh_hash computes core/lsh.py:raw_hashes's expression."""
+    r = rng(2)
+    x = normal(r, 300, 24)
+    cfg = lsh.LSHConfig(n_hashes=4, bucket_width=4.0, n_buckets=16)
+    p = lsh.init_lsh(torch.Generator().manual_seed(1), 24, cfg, device="cpu")
+    assert torch.equal(ops.lsh_hash(th(x), p.a, p.b, 4.0),
+                       lsh.raw_hashes(th(x), p))
+
+
+# ---------------------------------------------------------------------------
 # dispatch: CPU tensors to the plain versions, never a CUDA kernel; the
 # kernels' wrappers refuse a CPU tensor instead of computing on it
 # ---------------------------------------------------------------------------
@@ -253,12 +362,17 @@ def _small_args():
     idx = th(np.zeros((4, 3), np.int32))
     valid = th(np.ones((4, 3), bool))
     dists = th(normal(r, 4, 10))
+    a, am, u, um = map(th, cf_inputs(2, 4, 10, 8))
+    b = th(np.zeros(3, np.float32))
     return {
         "knn_distance": ((qs, ps), {}),
         "distance_topk": ((qs, ps, labs), {"k": 3}),
         "candidate_topk": ((dists, labs[None].expand(4, 10).contiguous()),
                            {"k": 3}),
         "refine_distances": ((qs, ps, idx, valid), {}),
+        "lsh_hash": ((qs, th(normal(r, 8, 3)), b, 4.0), {}),
+        "cf_weights": ((a, am, u, um), {}),
+        "cf_refine": ((a, am, u, um, idx, valid), {"shrink": 8.0}),
     }
 
 
@@ -274,7 +388,8 @@ def test_cpu_tensors_take_the_plain_versions():
 
 
 @pytest.mark.parametrize("name", ["knn_distance", "distance_topk",
-                                  "candidate_topk", "refine_distances"])
+                                  "candidate_topk", "refine_distances",
+                                  "lsh_hash", "cf_weights", "cf_refine"])
 def test_kernel_wrappers_refuse_cpu_tensors(name):
     args, kwargs = _small_args()[name]
     ops.reset_launch_counts()
