@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Chip smoke test of the PyTorch/CUDA port: Algorithm 1 on one card.
+"""Chip smoke test of the PyTorch/CUDA port on one card: Algorithm 1 (kNN
+and user-based CF) and aggregated-KV LM decode.
 
 Run from the repository root, on a machine with an NVIDIA H100:
 
@@ -7,13 +8,13 @@ Run from the repository root, on a machine with an NVIDIA H100:
 
 What it does, in order:
 
-1. builds the seven CUDA kernels from ``src/repro_torch/csrc`` with nvcc
+1. builds the nine CUDA kernels from ``src/repro_torch/csrc`` with nvcc
    (one process per source, in parallel) and prints each kernel's register
    and spill count from ``-Xptxas=-v``;
-2. drives the port's two main paths through their entry points, each at the
-   scale of the paper's dataset, with every kernel's launch count set to 0
-   just before the path and read just after; a kernel of the path that
-   never launched fails the run:
+2. drives the port's main paths through their entry points, each at the
+   scale of the paper's dataset or the model's full width, with every
+   kernel's launch count set to 0 just before the path and read just
+   after; a kernel of the path that never launched fails the run:
 
    * kNN (mfeat-factors: 2.3 M points x 217 features x 10 classes; 1024
      test queries; 8 map shards): ``run_exact``, ``run_sampled``,
@@ -28,11 +29,26 @@ What it does, in order:
      batch through ``MapReduce(mesh=None)`` with the psum combine;
    * the LSH hash phase: ``ops.lsh_hash`` on both paths' hash inputs (kNN
      shard 0's rows, CF shard 0's centred profiles);
+   * aggregated-KV LM decode: qwen3-8b at full width and depth (36 layers,
+     d_model 4096, 32 query over 8 KV heads of 128, d_ff 12,288, vocab
+     151,936 padded to 152,064, bf16, random weights from seed 0) served by
+     ``DecodeEngine`` with 4 slots, s_max 1024 and compression 16 (64
+     buckets of 32 slots): four 256-token prompts prefilled once (batch 1,
+     exact), then at refine_frac 0, 0.05, 0.25 and 1.0 the same prefixes
+     re-inserted and 31 decode steps each, first in the bucket-major
+     layout (``agg_refine_attention``), then in the flat layout
+     (``aggregated_attention``), both with ``distance_topk`` selecting the
+     buckets; per level tokens/s, step p50/p99, KL and greedy-token
+     agreement against rf 1.0 (benchmarks/decode_bench.py) and the largest
+     bucket count against the capacity; then decode_bench's exactness guard
+     in f32 at full width, 2 layers deep: at rf 1.0 the engine's tokens
+     equal an exact-attention decode's and its logits agree within 1e-4,
+     in both layouts;
 3. holds each kernel against its plain PyTorch version (``kernels/ref.py``)
    on the very inputs the paths gave it, at every shape it was called with,
    and times kernel, plain version and, where one PyTorch call computes the
    same function, that call (``library_ms``);
-4. checks the end-to-end answers of both applications on a small input
+4. checks the end-to-end answers of the three paths on a small input
    against the same functions run on the CPU, and that aggregation gives
    identical bits on two runs;
 5. prints the accuracies and RMSEs, one JSON line ``{"kernels": [...]}``,
@@ -50,6 +66,10 @@ projection lies on a bucket border (the JAX package's own rule).  The
 full-scale CF answers: under 0.1 % of the predictions more than half a star
 outside [1, 5]; every RMSE at least the ratings' noise (0.5) and below that
 of predicting each user's mean; the approximate jobs' RMSE loss under 6 %.
+The decode-attention kernels agree with their plain versions within rtol
+2e-5 plus atol 2e-5 (the JAX package's attention tolerance), in f32 on the
+same cache values, bf16 or f32; the LM's tokens on the card equal those on
+the CPU and its logits agree within 2e-5 (smoke config, f32).
 
 It exits non-zero, printing no result, when there is no CUDA device, when
 the package is not beside it, or when any check fails.
@@ -105,10 +125,29 @@ PRED_OUT_SHARE = 1e-3
 RMSE_FLOOR = 0.5
 RMSE_LOSS_MAX = 0.06
 
+# Aggregated-KV LM decode: qwen3-8b at full width and depth in bf16,
+# benchmarks/decode_bench.py's sweep, served by DecodeEngine with four slots.
+LM_ARCH = "qwen3-8b"
+LM_SLOTS = 4
+LM_S_MAX = 1024
+LM_COMPRESSION = 16           # K = 64 buckets of 2 x 16 = 32 slots each
+LM_PROMPT = 128           # cut from 256: host-bound prefill (PERF.md)
+LM_NEW_TOKENS = 32            # the prefix's token, then 31 decode steps
+LM_SWEEP = (0.0, 0.05, 0.25, 1.0)
+LM_LAYOUTS = ("bucket_major", "flat")
+LM_WARM_STEPS = 2             # untimed steps at each level first
+LM_GUARD_LAYERS = 2           # the f32 exactness guard's depth
+LM_GUARD_TOL = 1e-4           # benchmarks/decode_bench.py:130
+ATTN_TOL = 2e-5               # tests/test_kernels.py:108
+LM_CPU_TOL = 2e-5             # card vs CPU, smoke config, f32
+
 KNN_KERNELS = ("distance_topk", "candidate_topk", "knn_distance",
                "refine_distances")
 CF_KERNELS = ("cf_weights", "cf_refine")
 LSH_KERNELS = ("lsh_hash",)
+LM_KERNELS = {"bucket_major": ("distance_topk", "agg_refine_attention"),
+              "flat": ("distance_topk", "aggregated_attention")}
+ATTN_KERNELS = ("agg_refine_attention", "aggregated_attention")
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): fp32 on the CUDA
 # cores and HBM3 bandwidth, both at the full 700 W power limit.
@@ -123,7 +162,12 @@ REPLACES = {
     "lsh_hash": "src/repro/kernels/lsh_hash.py:50",
     "cf_weights": "src/repro/kernels/cf_weights.py:70",
     "cf_refine": "src/repro/kernels/cf_refine.py:115",
+    "agg_refine_attention": "src/repro/kernels/agg_refine.py:132",
+    "aggregated_attention": "src/repro/kernels/aggregated_attention.py:94",
 }
+SOURCES = {"agg_refine_attention": "agg_refine",
+           "aggregated_attention": "aggregated_attention"}
+PLAIN = {"aggregated_attention": "aggregated_attention_decode"}
 
 
 def fail(msg: str):
@@ -135,21 +179,37 @@ def fail(msg: str):
 # ---------------------------------------------------------------------------
 
 class CaptureProbe:
-    """An ops probe that keeps the first call of each op at each distinct
-    set of argument shapes, and otherwise just forwards the call."""
+    """An ops probe that keeps one call of each op at each distinct set of
+    argument shapes, and otherwise just forwards the call: the first, or
+    with ``skip`` set the first after ``skip`` calls of the same key.  With
+    ``clone`` it keeps copies of the tensors, for callers that update their
+    inputs in place afterwards (the decode caches)."""
 
-    def __init__(self, torch):
+    def __init__(self, torch, clone: bool = False):
         self.torch = torch
+        self.clone = clone
+        self.tag = None       # set by the caller: part of every key
+        self.skip = 0         # set by the caller: calls of a key to pass by
+        self.seen: dict[tuple, int] = {}
         self.calls: dict[str, dict] = {}
 
     def _sig(self, a):
         return tuple(a.shape) if isinstance(a, self.torch.Tensor) else a
 
+    def _keep(self, a):
+        return a.clone() if isinstance(a, self.torch.Tensor) else a
+
     def timed(self, op, fn, args, kwargs):
-        key = tuple(self._sig(a) for a in args) + tuple(
+        key = (self.tag,) + tuple(self._sig(a) for a in args) + tuple(
             sorted((k, self._sig(v)) for k, v in kwargs.items())
         )
-        self.calls.setdefault(op, {}).setdefault(key, (args, kwargs))
+        calls = self.calls.setdefault(op, {})
+        n_seen = self.seen.get((op, key), 0)
+        self.seen[(op, key)] = n_seen + 1
+        if key not in calls and n_seen >= self.skip:
+            calls[key] = ((tuple(self._keep(a) for a in args),
+                           {k: self._keep(v) for k, v in kwargs.items()})
+                          if self.clone else (args, kwargs))
         return fn(*args, **kwargs)
 
 
@@ -183,7 +243,8 @@ def bench_ms(torch, fn, flush) -> float:
 
 def work(torch, op, args, kwargs):
     """(flops, bytes) the op must do and move on these inputs: each input
-    read once, each output written once."""
+    read once, each output written once; data-dependent work counted on
+    these inputs."""
     k = kwargs.get("k")
     if op == "distance_topk":
         q, p, labels = args[:3]
@@ -231,6 +292,44 @@ def work(torch, op, args, kwargs):
         rows = int(torch.unique(idx[use]).numel())
         return (12.0 * int(use.sum()) * ni + (nq + rows) * ni,
                 4 * 4 * nq * ni + 8 * rows * ni + 9 * nq * nb)
+    if op == "agg_refine_attention":
+        # the live rows of the selected buckets: each distinct (sequence,
+        # bucket) read once, every selection slot computed (2 G (dk + dv)
+        # operations per row and KV head)
+        q, ks, vs, counts, top_idx, use = args
+        b, hkv, g, dk = q.shape
+        cap, dv = ks.shape[2], vs.shape[-1]
+        cnt = counts.gather(1, top_idx.long())
+        n_live = torch.where((use != 0) & (cnt > 0),
+                             torch.clamp_max(cnt, cap), 0)
+        pair = torch.arange(b, device=q.device)[:, None] * counts.shape[1] \
+            + top_idx.long()
+        uniq, first = torch.unique(torch.where(n_live > 0, pair, -1),
+                                   return_inverse=True)
+        rows = int(torch.zeros(uniq.numel(), dtype=torch.long,
+                               device=q.device).scatter_reduce(
+            0, first.flatten(), n_live.flatten().long(), "amax").sum())
+        item = ks.element_size()
+        return (2.0 * g * (dk + dv) * hkv * int(n_live.sum()),
+                4 * b * hkv * g * dk + rows * hkv * (dk + dv) * item
+                + 9 * top_idx.numel() + 4 * b * hkv * g * (2 + dv))
+    if op == "aggregated_attention":
+        # bucket_of below valid_len, the live tokens' K/V rows, the live
+        # centroids, counts and refined: each read once
+        q, kc, vc, bucket_of, mk, mv, counts, refined = args
+        vl = kwargs["valid_len"]
+        b, hq, dk = q.shape
+        s, hkv, dv = kc.shape[1], kc.shape[2], vc.shape[-1]
+        t = torch.arange(s, device=q.device)[None, :]
+        live_tok = int((refined.gather(1, bucket_of.long())
+                        & (t < vl[:, None].long())).sum())
+        live_cent = int((~refined & (counts > 0)).sum())
+        item = kc.element_size()
+        return (2.0 * (hq // hkv) * (dk + dv) * hkv * (live_tok + live_cent),
+                4 * b * hq * dk + 4 * int(vl.clamp_max(s).sum())
+                + live_tok * hkv * (dk + dv) * item
+                + live_cent * hkv * (dk + dv) * 4 + 5 * refined.numel()
+                + 4 * b + 4 * b * hq * dv)
     raise ValueError(op)
 
 
@@ -296,8 +395,21 @@ def check_kernel(torch, ref, topk_stream, op, wrapper, args, kwargs):
     if op == "cf_refine":
         args = cf_refine_slice(args, 0, CF_CHECK_QUERIES)
     got = wrapper(*args, **kwargs)
-    want = getattr(ref, op)(*args, **kwargs)
+    want = getattr(ref, PLAIN.get(op, op))(*args, **kwargs)
     torch.cuda.synchronize()
+    if op in ATTN_KERNELS:
+        # bf16 caches: the plain version reads the same bf16 values in f32
+        outs = (zip(("m", "l", "acc"), got, want)
+                if op == "agg_refine_attention" else [("out", got, want)])
+        max_err = 0.0
+        for name, g, w in outs:
+            err = (g - w).abs()
+            max_err = max(max_err, float(err.max()) if err.numel() else 0.0)
+            if not bool(torch.isfinite(g).all()) or bool(
+                    (err > ATTN_TOL + ATTN_TOL * w.abs()).any()):
+                fail(f"{op} {name}: beyond tolerance (max err "
+                     f"{float(err.max()):.3e})")
+        return {"max_abs_err": max_err, **none}
     if op == "lsh_hash":
         diff = (got.long() - want.long()).abs()
         flipped = float((diff > 0).float().mean())
@@ -342,7 +454,7 @@ def plain_call(ref, op, args, kwargs):
     """The plain version on the captured inputs, as one timed function.
     The plain cf_refine runs in slices of CF_CHECK_QUERIES queries, the most
     whose [Q, B, I] gathers fit beside the path's data."""
-    plain = getattr(ref, op)
+    plain = getattr(ref, PLAIN.get(op, op))
     if op != "cf_refine":
         return lambda: plain(*args, **kwargs)
     nq = args[0].shape[0]
@@ -355,8 +467,9 @@ def library_call(torch, op, args, kwargs):
     """One PyTorch call computing the same function, where there is one.
     Timed as a yardstick only; the port never calls it.  None for
     distance_topk, refine_distances, lsh_hash (a product, then a floor),
-    cf_weights (three masked products) and cf_refine (a gather, then
-    reductions)."""
+    cf_weights (three masked products), cf_refine (a gather, then
+    reductions) and agg_refine_attention (a gather, then a softmax over
+    the selected rows)."""
     if op == "knn_distance":
         q, p = args
         return lambda: torch.cdist(q, p)
@@ -366,7 +479,33 @@ def library_call(torch, op, args, kwargs):
         if len(args) > 2 and args[2] is not None:
             cat = torch.cat([args[2], dists], dim=1)
         return lambda: torch.topk(cat, kwargs["k"], dim=1, largest=False)
+    if op == "aggregated_attention":
+        return sdpa_call(torch, args, kwargs)
     return None
+
+
+def sdpa_call(torch, args, kwargs):
+    """One scaled_dot_product_attention over [tokens; centroids] with the
+    two-stage biases as its mask: 0 for a live token, log(count) for a live
+    centroid, NEG for the rest.  Its inputs are made here, outside the
+    timed call; the G query heads of a KV head are its query rows."""
+    q, kc, vc, bucket_of, mk, mv, counts, refined = args
+    vl = kwargs["valid_len"]
+    b, hq, dk = q.shape
+    s, hkv = kc.shape[1], kc.shape[2]
+    neg = -1.0e30
+    t = torch.arange(s, device=q.device)[None, :]
+    tok_live = refined.gather(1, bucket_of.long()) & (t < vl[:, None].long())
+    cent_live = ~refined & (counts > 0)
+    bias = torch.cat([
+        torch.where(tok_live, 0.0, neg),
+        torch.where(cent_live, torch.log(torch.clamp_min(counts.float(), 1.0)),
+                    neg)], dim=1)[:, None, None, :]
+    keys = torch.cat([kc.float(), mk], dim=1).transpose(1, 2).contiguous()
+    vals = torch.cat([vc.float(), mv], dim=1).transpose(1, 2).contiguous()
+    qg = q.reshape(b, hkv, hq // hkv, dk)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return lambda: sdpa(qg, keys, vals, attn_mask=bias, scale=kwargs["scale"])
 
 
 # ---------------------------------------------------------------------------
@@ -807,10 +946,274 @@ def cf_small_check(torch, cf, lsh, refine, ops, make_netflix_like,
     print("CF aggregation: identical bits on two runs")
 
 
-def _shape(args, kwargs) -> str:
+# ---------------------------------------------------------------------------
+# aggregated-KV LM decode
+# ---------------------------------------------------------------------------
+
+def lm_prompts(vocab: int, n: int, length: int, seed: int):
+    import numpy as np
+    return np.random.default_rng(seed).integers(0, vocab, (n, length))
+
+
+def lm_generate(torch, engine, prefixes, rf, steps):
+    """Insert prefix i into slot i, then ``steps`` decode steps at ``rf``:
+    (tokens [slots, steps + 1], logits [slots, steps + 1, V] f32, host ms a
+    step).  Column 0 is each prefix's own token and logits, as
+    benchmarks/decode_bench.py counts them."""
+    engine.free_all()
+    for i, pf in enumerate(prefixes):
+        engine.insert(pf, i)
+    toks = [torch.tensor([pf.next_token for pf in prefixes],
+                         dtype=torch.int32, device=engine.device)]
+    logits = [torch.stack([pf.logits for pf in prefixes])]
+    times = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        nxt, lg = engine.generate_step(rf)   # returns after the card is done
+        times.append((time.perf_counter() - t0) * 1e3)
+        toks.append(nxt)
+        logits.append(lg)
+    return torch.stack(toks, 1), torch.stack(logits, 1), times
+
+
+def lm_kl(torch, p_logits, q_logits) -> float:
+    """Mean KL(softmax(p) || softmax(q)) over every position
+    (benchmarks/decode_bench.py:_kl), in float64."""
+    lp = torch.log_softmax(p_logits.double(), dim=-1)
+    lq = torch.log_softmax(q_logits.double(), dim=-1)
+    return float((lp.exp() * (lp - lq)).sum(-1).mean())
+
+
+def lm_max_count(engine) -> tuple[int, int]:
+    """(largest bucket count over every layer and slot, slots a bucket)."""
+    from repro_torch.models.aggregated_kv import BucketMajorKVCache
+
+    worst = max(int(c.counts.max()) for c in engine.state)
+    c0 = engine.state[0]
+    cap = (c0.capacity if isinstance(c0, BucketMajorKVCache)
+           else 2 * engine.cfg.agg_compression)
+    return worst, cap
+
+
+def lm_path(torch, ops, probe, engine_cls, model, cfg, layout, prompts,
+            jobs):
+    """One layout of the LM path: prefill every prompt, then at each
+    refine_frac re-insert the same prefixes and decode.  The kernels'
+    inputs are captured (cloned) at the first prompt's last position (the
+    batch-1 prefill shapes; each layer calls each kernel once a token, so
+    the probe lets (length - 1) x layers calls of a key pass first) and
+    during the untimed warm-up steps of each level.  Returns the per-level
+    summary and the path's launch counts."""
+
+    cfg = cfg.with_(agg_layout=layout)
+    engine = engine_cls(model, cfg, max_slots=LM_SLOTS, s_max=LM_S_MAX,
+                        generator=torch.Generator("cuda").manual_seed(7))
+    ops.reset_launch_counts()
+    prefixes, prefill_ms = [], []
+    probe.tag = f"{layout} prefill"
+    probe.skip = (prompts.shape[1] - 1) * cfg.n_layers
+    for i, prompt in enumerate(prompts):
+        ops.set_probe(probe if i == 0 else None)
+        pf, ms = _host_ms(torch, lambda prompt=prompt: engine.prefill(prompt))
+        prefixes.append(pf)
+        prefill_ms.append(ms)
+    ops.set_probe(None)
+    probe.skip = 0
+    caught = {op for op, calls in probe.calls.items()
+              if any(key[0] == probe.tag for key in calls)}
+    if not caught >= set(LM_KERNELS[layout]):
+        fail(f"LM {layout}: prefill calls of "
+             f"{sorted(set(LM_KERNELS[layout]) - caught)} not captured")
+    jobs[f"lm {layout} prefill"] = {"ms": sum(prefill_ms),
+                                    "launches": ops.launch_counts()}
+    print(f"LM {layout}: prefill of {len(prompts)} x {prompts.shape[1]} "
+          f"tokens, batch 1: {[round(m, 1) for m in prefill_ms]} ms "
+          f"({sum(prefill_ms) / prompts.size:.2f} ms a token)")
+    ops.set_probe(probe)
+    for rf in LM_SWEEP:
+        probe.tag = f"{layout} rf={rf}"
+        lm_generate(torch, engine, prefixes, rf, LM_WARM_STEPS)
+    ops.set_probe(None)
+    probe.tag = None
+
+    outs, levels = {}, {}
+    for rf in LM_SWEEP:
+        before = ops.launch_counts()
+        toks, logits, times = lm_generate(torch, engine, prefixes, rf,
+                                          LM_NEW_TOKENS - 1)
+        after = ops.launch_counts()
+        launches = {op: after[op] - before[op] for op in LM_KERNELS[layout]}
+        jobs[f"lm {layout} rf={rf}"] = {"ms": sum(times),
+                                        "launches": launches}
+        outs[rf] = (toks, logits)
+        worst, cap = lm_max_count(engine)
+        q = statistics.quantiles(times, n=100, method="inclusive")
+        levels[str(rf)] = {
+            "tokens_per_s": (LM_NEW_TOKENS - 1) * LM_SLOTS / sum(times) * 1e3,
+            "step_p50_ms": statistics.median(times), "step_p99_ms": q[98],
+            "launches": launches, "step_bytes": engine.step_bytes(rf),
+            "max_bucket_count": worst, "capacity": cap,
+        }
+    ref_toks, ref_logits = outs[1.0]
+    for rf in LM_SWEEP:
+        toks, logits = outs[rf]
+        lv = levels[str(rf)]
+        lv["kl_vs_rf1"] = lm_kl(torch, ref_logits, logits)
+        # the first decode step: the same context at every level
+        lv["kl_first_step"] = lm_kl(torch, ref_logits[:, 1], logits[:, 1])
+        lv["token_agreement"] = float((toks == ref_toks).float().mean())
+        if not bool(torch.isfinite(logits[..., :cfg.vocab_size]).all()):
+            fail(f"LM {layout} rf={rf}: non-finite logits")
+        print(f"LM {layout} rf={rf}: {lv['tokens_per_s']:.1f} tokens/s, "
+              f"step p50 {lv['step_p50_ms']:.2f} ms p99 "
+              f"{lv['step_p99_ms']:.2f} ms, KL vs rf 1.0 "
+              f"{lv['kl_vs_rf1']:.4g} (first step "
+              f"{lv['kl_first_step']:.4g}), agreement "
+              f"{lv['token_agreement']:.3f}, launches {lv['launches']}, "
+              f"largest bucket {lv['max_bucket_count']} / {lv['capacity']}")
+    counts = ops.launch_counts()
+    check_launched(f"LM {layout}", counts, LM_KERNELS[layout])
+    return {"prefill_ms": prefill_ms, "levels": levels}, counts
+
+
+def lm_exact_decode(torch, model_lib, model, cfg, prompt, n_new):
+    """benchmarks/decode_bench.py:_exact_decode: a batch-1 exact-attention
+    decode (agg_kv off): the greedy tokens and logits from the prompt's
+    last position on."""
+    caches = model_lib.init_caches(cfg, batch=1, s_max=LM_S_MAX,
+                                   device="cuda")
+    feed = [int(t) for t in prompt]
+    toks, logits = [], []
+    for t in range(len(feed) + n_new - 1):
+        cur = torch.tensor([[feed[t]]], dtype=torch.int32, device="cuda")
+        pos = torch.tensor([t], dtype=torch.int32, device="cuda")
+        lg, caches = model_lib.serve_step(model, caches, cur, pos, cfg)
+        if t >= len(prompt) - 1:
+            feed.append(int(torch.argmax(lg[0])))
+            toks.append(feed[-1])
+            logits.append(lg[0].float())
+    return torch.tensor(toks, device="cuda"), torch.stack(logits)
+
+
+def lm_guard(torch, model_lib, engine_cls, get_config, prompts):
+    """decode_bench's exactness guard at qwen3-8b's full width in f32,
+    LM_GUARD_LAYERS deep: at refine_frac 1.0 the engine's tokens equal an
+    exact-attention decode's, and its logits agree within LM_GUARD_TOL, in
+    both layouts (TF32 is off for every f32 product)."""
+    cfg = get_config(LM_ARCH).with_(
+        n_layers=LM_GUARD_LAYERS, dtype="float32", agg_kv=True,
+        agg_compression=LM_COMPRESSION)
+    model = model_lib.init_params(
+        cfg, torch.Generator("cuda").manual_seed(3), device="cuda")
+    exact_cfg = cfg.with_(agg_kv=False)
+    exact = [lm_exact_decode(torch, model_lib, model, exact_cfg, p,
+                             LM_NEW_TOKENS) for p in prompts]
+    out = {}
+    for layout in LM_LAYOUTS:
+        engine = engine_cls(model, cfg.with_(agg_layout=layout),
+                            max_slots=LM_SLOTS, s_max=LM_S_MAX,
+                            generator=torch.Generator("cuda").manual_seed(7))
+        prefixes = [engine.prefill(p) for p in prompts]
+        toks, logits, _ = lm_generate(torch, engine, prefixes, 1.0,
+                                      LM_NEW_TOKENS - 1)
+        worst, cap = lm_max_count(engine)
+        err = max(float((logits[i] - ex_l).abs().max())
+                  for i, (_, ex_l) in enumerate(exact))
+        same = all(torch.equal(toks[i].long(), ex_t.long())
+                   for i, (ex_t, _) in enumerate(exact))
+        close = all(torch.allclose(logits[i], ex_l, rtol=LM_GUARD_TOL,
+                                   atol=LM_GUARD_TOL)
+                    for i, (_, ex_l) in enumerate(exact))
+        print(f"LM guard {layout} (f32, {LM_GUARD_LAYERS} layers, rf 1.0 vs "
+              f"exact attention): tokens equal {same}, max logit err "
+              f"{err:.3e} (tol {LM_GUARD_TOL}), largest bucket {worst} / "
+              f"{cap}")
+        if not (same and close):
+            fail(f"LM guard {layout}: rf 1.0 decode differs from exact "
+                 "attention")
+        out[layout] = {"tokens_equal": same, "max_logit_err": err,
+                       "max_bucket_count": worst, "capacity": cap}
+    return out
+
+
+def lm_small_check(torch):
+    """The smoke qwen3-8b in f32 through DecodeEngine on the card and on the
+    CPU (the plain versions), same weights and LSH draws, both layouts,
+    every refine_frac: tokens equal, logits within LM_CPU_TOL."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as model_lib
+    from repro_torch.serve.lm.engine import DecodeEngine as engine_cls
+
+    base = get_config(LM_ARCH, smoke=True).with_(agg_kv=True,
+                                                 agg_compression=4)
+    prompts = lm_prompts(base.vocab_size, 2, 6, seed=4)
+    for layout in LM_LAYOUTS:
+        cfg = base.with_(agg_layout=layout)
+        results = {}
+        for dev in ("cuda", "cpu"):
+            model = model_lib.init_params(
+                cfg, torch.Generator().manual_seed(5), device=dev)
+            lsh = model_lib.draw_lsh(cfg, torch.Generator().manual_seed(6),
+                                     device=dev)
+            engine = engine_cls(model, cfg, max_slots=2, s_max=32, lsh=lsh)
+            prefixes = [engine.prefill(p) for p in prompts]
+            results[dev] = {
+                rf: [t.cpu() for t in lm_generate(torch, engine, prefixes,
+                                                  rf, 6)[:2]]
+                for rf in LM_SWEEP}
+        worst = 0.0
+        for rf in LM_SWEEP:
+            (gt, gl), (wt, wl) = results["cuda"][rf], results["cpu"][rf]
+            err = (gl - wl).abs()
+            worst = max(worst, float(err.max()))
+            if not torch.equal(gt, wt) or bool(
+                    (err > LM_CPU_TOL + LM_CPU_TOL * wl.abs()).any()):
+                fail(f"LM small check {layout} rf={rf}: the card and the "
+                     f"CPU differ (tokens equal {torch.equal(gt, wt)}, max "
+                     f"logit err {float(err.max()):.3e})")
+        print(f"LM small check {layout} (smoke qwen3-8b, cuda vs cpu, every "
+              f"rf): tokens equal, max logit err {worst:.2e}")
+
+
+def lm_phase(torch, ops, probe, jobs):
+    """The LM path at qwen3-8b's full width and depth in bf16, both
+    layouts; returns (summary, launch counts summed over the layouts)."""
+    from repro_torch.configs import get_config, param_count
+    from repro_torch.models import model as model_lib
+    from repro_torch.serve.lm.engine import DecodeEngine
+
+    cfg = get_config(LM_ARCH).with_(agg_kv=True,
+                                    agg_compression=LM_COMPRESSION)
+    t0 = time.perf_counter()
+    model = model_lib.init_params(
+        cfg, torch.Generator("cuda").manual_seed(0), device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"LM {LM_ARCH}: {n_params / 1e9:.3f} B parameters "
+          f"(param_count {param_count(cfg) / 1e9:.3f} B before vocab "
+          f"padding), {cfg.dtype}, drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s; "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+    prompts = lm_prompts(cfg.vocab_size, LM_SLOTS, LM_PROMPT, seed=0)
+    summary, total = {}, {}
+    for layout in LM_LAYOUTS:
+        summary[layout], counts = lm_path(torch, ops, probe, DecodeEngine,
+                                          model, cfg, layout, prompts, jobs)
+        for op, n in counts.items():
+            total[op] = total.get(op, 0) + n
+    del model
+    torch.cuda.empty_cache()
+    summary["guard"] = lm_guard(torch, model_lib, DecodeEngine, get_config,
+                                prompts)
+    torch.cuda.empty_cache()
+    return summary, total
+
+
+def _shape(key, args, kwargs) -> str:
     shape = " ".join("x".join(str(d) for d in a.shape) for a in args
                      if hasattr(a, "shape"))
-    return shape + (f" k={kwargs['k']}" if "k" in kwargs else "")
+    return shape + (f" k={kwargs['k']}" if "k" in kwargs else "") + (
+        f" ({key[0]})" if key[0] else "")
 
 
 TOLS = {
@@ -820,27 +1223,30 @@ TOLS = {
     "cf_refine": f"rtol {CF_TOL} + atol {CF_TOL} on w, num and den, on the "
                  f"first {CF_CHECK_QUERIES} queries of each call",
     "lsh_hash": "off by at most 1 on under 0.1 % of hashes",
+    **dict.fromkeys(ATTN_KERNELS, f"rtol {ATTN_TOL} + atol {ATTN_TOL} in "
+                    "f32 against the plain version on the same (bf16 or "
+                    "f32) cache"),
 }
 
 
 def kernel_row(torch, ref, topk_stream, ops, op, calls, counts, jobs, flush):
     """Check the kernel at every captured shape and time it at the shape
-    with the largest least time (lsh_hash and cf_weights, whose shapes are
-    different stages: at each shape); the row of the ``{"kernels": [...]}``
-    line."""
+    with the largest least time (lsh_hash, cf_weights, distance_topk and
+    the decode-attention kernels, whose shapes are different stages or
+    paths: at each shape); the row of the ``{"kernels": [...]}`` line."""
     wrapper = ops.KERNELS[op]
     summaries = [check_kernel(torch, ref, topk_stream, op, wrapper, args,
                               kwargs)
                  for args, kwargs in calls.values()]
-    ranked = sorted(calls.values(),
-                    key=lambda c: -bound_ms(*work(torch, op, *c))[0])
+    ranked = sorted(calls.items(),
+                    key=lambda c: -bound_ms(*work(torch, op, *c[1]))[0])
     timed = []
-    every = op in ("lsh_hash", "cf_weights")
-    for args, kwargs in ranked if every else ranked[:1]:
+    every = op in ("lsh_hash", "cf_weights", "distance_topk", *ATTN_KERNELS)
+    for key, (args, kwargs) in ranked if every else ranked[:1]:
         b_ms, b_by = bound_ms(*work(torch, op, args, kwargs))
         lib = library_call(torch, op, args, kwargs)
         timed.append({
-            "shape": _shape(args, kwargs),
+            "shape": _shape(key, args, kwargs),
             "ms": bench_ms(torch, lambda: wrapper(*args, **kwargs), flush),
             "plain_ms": bench_ms(torch, plain_call(ref, op, args, kwargs),
                                  flush),
@@ -849,7 +1255,8 @@ def kernel_row(torch, ref, topk_stream, ops, op, calls, counts, jobs, flush):
         })
     top = timed[0]
     row = {
-        "name": op, "route": "cuda", "source": f"src/repro_torch/csrc/{op}.cu",
+        "name": op, "route": "cuda",
+        "source": f"src/repro_torch/csrc/{SOURCES.get(op, op)}.cu",
         "replaces": REPLACES[op], "launches": counts[op],
         "launches_per_job": {job: j["launches"][op] for job, j in jobs.items()
                              if op in j["launches"]},
@@ -896,8 +1303,11 @@ def main() -> int:
     )
     from repro_torch.kernels import _build, ops, ref, topk_stream
 
+    # Every f32 product in full f32 (the LM guard's 1e-4 needs it).
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    print("TF32 off: torch.backends.cuda.matmul.allow_tf32 = False, "
+          "torch.backends.cudnn.allow_tf32 = False")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -958,12 +1368,23 @@ def main() -> int:
                            cf_data[0][:cf_n_s], cf_data[1][:cf_n_s])
     check_launched("LSH hash", counts_lsh, LSH_KERNELS)
 
+    # ---- aggregated-KV LM decode ----
+    lm_probe = CaptureProbe(torch, clone=True)
+    lm_jobs = {}
+    lm_summary, counts_lm = lm_phase(torch, ops, lm_probe, lm_jobs)
+    print(json.dumps({"lm": lm_summary}))
+    for op, calls in lm_probe.calls.items():
+        probe.calls.setdefault(op, {}).update(calls)
+
     # ---- every kernel against its plain version ----
     counts = {**counts_knn, **{op: counts_cf[op] for op in CF_KERNELS},
-              **{op: counts_lsh[op] for op in LSH_KERNELS}}
+              **{op: counts_lsh[op] for op in LSH_KERNELS},
+              **{op: counts_lm[op] for op in ATTN_KERNELS}}
+    counts["distance_topk"] += counts_lm["distance_topk"]
     all_jobs = {**jobs, **cf_jobs_out,
                 "lsh phase": {"launches": {op: counts_lsh[op]
-                                           for op in LSH_KERNELS}}}
+                                           for op in LSH_KERNELS}},
+                **lm_jobs}
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device="cuda")
     rows = [kernel_row(torch, ref, topk_stream, ops, op, probe.calls[op],
                        counts, all_jobs, flush)
@@ -973,6 +1394,7 @@ def main() -> int:
     small_check(torch, knn, lsh, refine, make_mfeat_like)
     cf_small_check(torch, cf, lsh, refine, ops, make_netflix_like,
                    holdout_split)
+    lm_small_check(torch)
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after start, "
           "the build included")

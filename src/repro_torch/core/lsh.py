@@ -91,23 +91,46 @@ def raw_hashes(data: torch.Tensor, params: LSHParams) -> torch.Tensor:
 
 
 def fine_bucket_ids(data: torch.Tensor, params: LSHParams) -> torch.Tensor:
-    """``sig % base_buckets`` (or ``n_buckets`` for flat configs), int32.
-
-    The signature is ``sum_j uint32(h_j) * prime_j`` with uint32 wrap-around.
-    torch has no uint32 arithmetic, so it runs in int64: each prime splits
-    into 16-bit halves so that every product stays below 2^48, and the sum
-    is masked to 32 bits after each step.
-    """
-    h = raw_hashes(data, params).to(torch.int64) & _MASK32   # uint32(h)
+    """``sig % base_buckets`` (or ``n_buckets`` for flat configs), int32,
+    with the signature of ``wrapped_signature``."""
     cfg = params.config
-    sig = torch.zeros(h.shape[0], dtype=torch.int64, device=h.device)
-    for j, prime in enumerate(_SIGNATURE_PRIMES[: cfg.n_hashes]):
-        lo, hi = prime & 0xFFFF, prime >> 16
-        hj = h[:, j]
-        term = hj * lo + (((hj * hi) & 0xFFFF) << 16)        # mod 2^32
-        sig = (sig + term) & _MASK32
+    sig = wrapped_signature(raw_hashes(data, params))
     base = cfg.base_buckets or cfg.n_buckets
     return (sig % base).to(torch.int32)
+
+
+def wrapped_signature(h: torch.Tensor) -> torch.Tensor:
+    """[..., H] int32 hashes -> [...] int64 holding the uint32 signature
+    ``sum_j uint32(h_j) * prime_j`` with uint32 wrap-around.
+
+    torch has no uint32 arithmetic, so it runs in int64: each prime splits
+    into 16-bit halves, so that every product, and the sum of the H terms,
+    stays below 2^53; the sum is then taken mod 2^32.
+    """
+    lo, hi = _prime_halves(h.shape[-1], h.device)
+    h = h.to(torch.int64) & _MASK32                          # uint32(h)
+    terms = h * lo + (((h * hi) & 0xFFFF) << 16)             # mod 2^32
+    return terms.sum(dim=-1) & _MASK32
+
+
+_PRIME_HALVES: dict = {}
+
+
+def _prime_halves(n: int, device: torch.device):
+    """The low and high 16 bits of the first n signature primes, [n] int64
+    on ``device``, made once per device: a copy from the host to the card
+    would wait for the card at every call (every layer of every decode
+    step)."""
+    key = (n, str(device))
+    if key not in _PRIME_HALVES:
+        if n > len(_SIGNATURE_PRIMES):
+            raise ValueError(f"{n} hashes: at most {len(_SIGNATURE_PRIMES)}")
+        primes = _SIGNATURE_PRIMES[:n]
+        _PRIME_HALVES[key] = tuple(
+            torch.tensor([f(p) for p in primes], dtype=torch.int64,
+                         device=device)
+            for f in (lambda p: p & 0xFFFF, lambda p: p >> 16))
+    return _PRIME_HALVES[key]
 
 
 def bucket_ids(data: torch.Tensor, params: LSHParams) -> torch.Tensor:

@@ -19,6 +19,7 @@ entry point returns ``cudaGetLastError()`` after its launch, which
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -106,11 +107,36 @@ def library(name: str) -> ctypes.CDLL:
 
 
 def entry(name: str, symbol: str, argtypes: list) -> ctypes._CFuncPtr:
-    """A C entry point of ``lib<name>.so`` with its argument types set."""
-    fn = getattr(library(name), symbol)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    """A C entry point of ``lib<name>.so`` with its argument types set
+    (looked up once)."""
+    fn = _ENTRIES.get((name, symbol))
+    if fn is None:
+        fn = getattr(library(name), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _ENTRIES[(name, symbol)] = fn
     return fn
+
+
+_ENTRIES: dict[tuple[str, str], ctypes._CFuncPtr] = {}
+_SM_COUNT: dict[int, int] = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """The number of SMs of a card (asked once per card)."""
+    n = _SM_COUNT.get(device.index)
+    if n is None:
+        n = torch.cuda.get_device_properties(device).multi_processor_count
+        _SM_COUNT[device.index] = n
+    return n
+
+
+def on_device(device: torch.device):
+    """A context in which ``device`` is the current card: no switch when it
+    is already (the launch goes to the current card's context)."""
+    if torch.cuda.current_device() == device.index:
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def check(name: str, err: int) -> None:

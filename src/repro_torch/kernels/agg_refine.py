@@ -1,0 +1,93 @@
+"""Wrapper of the CUDA kernel ``csrc/agg_refine.cu``.
+
+Exact re-attention over the selected buckets of a bucket-major KV cache, as
+a partial-softmax triple; replaces
+``src/repro/kernels/agg_refine.py:agg_refine_attention_pallas``.  The plain
+version is ``ref.agg_refine_attention``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ARGS = [_P] * 6 + [_I] * 9 + [_F] + [_P] * 7
+MAX_GROUP = 8     # query heads per KV head (decode_attn.cuh kMaxG)
+MAX_DV = 256      # value width: 8 values a lane
+CACHE_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def check_heads(group: int, dk: int, dv: int, dtype: torch.dtype) -> None:
+    """Raise unless the decode-attention kernels take these head shapes."""
+    if dtype not in CACHE_DTYPES:
+        raise TypeError(f"cache dtype {dtype}: expected bfloat16 or float32")
+    if not 1 <= group <= MAX_GROUP:
+        raise ValueError(f"{group} query heads per KV head: the kernel takes "
+                         f"1 to {MAX_GROUP}")
+    if not 1 <= dv <= MAX_DV:
+        raise ValueError(f"value width {dv}: the kernel takes 1 to {MAX_DV}")
+    vec = 128 // torch.finfo(dtype).bits
+    if dk % vec or dk % 4:
+        raise ValueError(f"key width {dk}: must be a multiple of {vec} for "
+                         f"{dtype} (16-byte loads)")
+
+
+def check_aligned(**tensors: torch.Tensor) -> None:
+    """Raise unless every tensor starts on a 16-byte boundary."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: not 16-byte aligned")
+
+
+def agg_refine_attention_cuda(
+    q: torch.Tensor, k_slots: torch.Tensor, v_slots: torch.Tensor,
+    counts: torch.Tensor, top_idx: torch.Tensor, use: torch.Tensor,
+    *, scale: float,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """q [B,Hkv,G,dk] f32; k_slots/v_slots [B,K,C,Hkv,dk|dv] bf16 or f32;
+    counts [B,K] int32; top_idx [B,R] int32; use [B,R] bool -> (m [B,Hkv,G],
+    l [B,Hkv,G], acc [B,Hkv,G,dv]) f32."""
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"q: on {dev}, the kernel needs a CUDA tensor")
+    _build.expect(q, "q", torch.float32, (None,) * 4, dev)
+    b, hkv, g, dk = q.shape
+    dtype = k_slots.dtype if isinstance(k_slots, torch.Tensor) else None
+    _build.expect(k_slots, "k_slots", dtype, (b, None, None, hkv, dk), dev)
+    kb, cap = k_slots.shape[1], k_slots.shape[2]
+    _build.expect(v_slots, "v_slots", dtype, (b, kb, cap, hkv, None), dev)
+    dv = v_slots.shape[-1]
+    check_heads(g, dk, dv, dtype)
+    _build.expect(counts, "counts", torch.int32, (b, kb), dev)
+    _build.expect(top_idx, "top_idx", torch.int32, (b, None), dev)
+    r = top_idx.shape[1]
+    if r == 0:
+        raise ValueError("empty selection: the caller skips R == 0")
+    _build.expect(use, "use", torch.bool, (b, r), dev)
+    check_aligned(q=q, k_slots=k_slots, v_slots=v_slots)
+    f32 = dict(dtype=torch.float32, device=dev)
+    part_m = torch.empty((b, hkv, r, g), **f32)
+    part_l = torch.empty((b, hkv, r, g), **f32)
+    part_acc = torch.empty((b, hkv, r, g, dv), **f32)
+    out_m = torch.empty((b, hkv, g), **f32)
+    out_l = torch.empty((b, hkv, g), **f32)
+    out_acc = torch.empty((b, hkv, g, dv), **f32)
+    if b == 0:
+        return out_m, out_l, out_acc
+    fn = _build.entry("agg_refine", "agg_refine_attention", _ARGS)
+    with _build.on_device(dev):
+        err = fn(q.data_ptr(), k_slots.data_ptr(), v_slots.data_ptr(),
+                 counts.data_ptr(), top_idx.data_ptr(), use.data_ptr(),
+                 int(dtype == torch.bfloat16), b, kb, cap, hkv, g, dk, dv, r,
+                 float(scale), part_m.data_ptr(), part_l.data_ptr(),
+                 part_acc.data_ptr(), out_m.data_ptr(), out_l.data_ptr(),
+                 out_acc.data_ptr(), _build.stream_of(q))
+    _build.check("agg_refine", err)
+    agg_refine_attention_cuda.launches += 1
+    return out_m, out_l, out_acc
+
+
+agg_refine_attention_cuda.launches = 0

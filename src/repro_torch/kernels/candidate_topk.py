@@ -42,7 +42,7 @@ def candidate_topk_cuda(
     if q == 0:
         return out_d, out_l
     fn = _build.entry("candidate_topk", "candidate_topk_f32", _ARGS)
-    with torch.cuda.device(dev):
+    with _build.on_device(dev):
         err = fn(dists.data_ptr(), labels.data_ptr(), _build.ptr(init_d),
                  _build.ptr(init_l), q, m, k, out_d.data_ptr(),
                  out_l.data_ptr(), _build.stream_of(dists))

@@ -56,7 +56,7 @@ def cf_refine_cuda(
     ac = _centred(active, active_mask)
     uc = _centred(ratings, mask)
     fn = _build.entry("cf_refine", "cf_refine_f32", _ARGS)
-    with torch.cuda.device(dev):
+    with _build.on_device(dev):
         err = fn(ac.data_ptr(), active_mask.data_ptr(), uc.data_ptr(),
                  mask.data_ptr(), idx.data_ptr(), use.data_ptr(), nq, nu, nb,
                  ni, float(shrink), w.data_ptr(), num.data_ptr(),

@@ -44,7 +44,7 @@ def cf_weights_cuda(
     ac = _centred(active, active_mask)
     uc = _centred(users, users_mask)
     fn = _build.entry("cf_weights", "cf_weights_f32", _ARGS)
-    with torch.cuda.device(dev):
+    with _build.on_device(dev):
         err = fn(ac.data_ptr(), active_mask.data_ptr(), uc.data_ptr(),
                  users_mask.data_ptr(), nq, nu, ni, out.data_ptr(),
                  _build.stream_of(active))

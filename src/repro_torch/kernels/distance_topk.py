@@ -12,7 +12,7 @@ import math
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.topk_stream import MAX_K
+from repro_torch.kernels.topk_stream import MAX_K, select_in_rounds
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]
@@ -36,11 +36,13 @@ def distance_topk_cuda(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """[Q,D] fp32 queries, [N,D] fp32 points, [N] int32 labels, optional [N]
     bool mask -> ([Q,k] fp32 scores, [Q,k] int32 labels).  Masked points and
-    empty slots give (BIG, label 0)."""
+    empty slots give (BIG, label 0).  The kernel keeps at most ``MAX_K``
+    best in registers; a wider k is taken in rounds of launches
+    (``topk_stream.select_in_rounds``), one query row at a time."""
     if metric not in ("l2", "dot"):
         raise ValueError(f"metric {metric!r}: expected 'l2' or 'dot'")
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"k={k}: the kernel takes 1 <= k <= {MAX_K}")
+    if k < 1:
+        raise ValueError(f"k={k}: expected k >= 1")
     dev = queries.device
     if dev.type != "cuda":
         raise ValueError(f"queries: on {dev}, the kernel needs a CUDA tensor")
@@ -51,11 +53,22 @@ def distance_topk_cuda(
     _build.expect(labels, "labels", torch.int32, (n,), dev)
     if valid is not None:
         _build.expect(valid, "valid", torch.bool, (n,), dev)
+    if k > MAX_K:
+        return select_in_rounds(_launch, queries, points, labels, valid, k=k,
+                                metric=metric)
+    return _launch(queries, points, labels, valid, k=k, metric=metric)
+
+
+def _launch(queries, points, labels, valid, *, k: int, metric: str):
+    """One launch of the kernel (k <= MAX_K) on checked inputs."""
+    dev = queries.device
+    nq, dim = queries.shape
+    n = points.shape[0]
     out_d = torch.empty((nq, k), dtype=torch.float32, device=dev)
     out_l = torch.empty((nq, k), dtype=torch.int32, device=dev)
     if nq == 0:
         return out_d, out_l
-    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_sms = _build.sm_count(dev)
     chunk_cols, n_chunks = _chunking(nq, n, n_sms)
     if n_chunks > 1:
         part_d = torch.empty((nq, n_chunks, k), dtype=torch.float32,
@@ -65,7 +78,7 @@ def distance_topk_cuda(
     else:
         part_d, part_l = out_d, out_l
     fn = _build.entry("distance_topk", "distance_topk_f32", _ARGS)
-    with torch.cuda.device(dev):
+    with _build.on_device(dev):
         err = fn(queries.data_ptr(), points.data_ptr(), labels.data_ptr(),
                  _build.ptr(valid), nq, n, dim, k, int(metric == "dot"),
                  chunk_cols, n_chunks, part_d.data_ptr(), part_l.data_ptr(),

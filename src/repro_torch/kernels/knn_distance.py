@@ -33,7 +33,7 @@ def knn_distance_cuda(queries: torch.Tensor,
     if nq == 0 or n == 0:
         return out
     fn = _build.entry("knn_distance", "knn_distance_f32", _ARGS)
-    with torch.cuda.device(dev):
+    with _build.on_device(dev):
         err = fn(queries.data_ptr(), points.data_ptr(), nq, n, dim,
                  out.data_ptr(), _build.stream_of(queries))
     _build.check("knn_distance", err)

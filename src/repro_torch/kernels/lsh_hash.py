@@ -35,7 +35,7 @@ def lsh_hash_cuda(data: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     if n == 0:
         return out
     fn = _build.entry("lsh_hash", "lsh_hash_f32", _ARGS)
-    with torch.cuda.device(dev):
+    with _build.on_device(dev):
         err = fn(data.data_ptr(), a.data_ptr(), b.data_ptr(), n, dim, h,
                  float(width), out.data_ptr(), _build.stream_of(data))
     _build.check("lsh_hash", err)

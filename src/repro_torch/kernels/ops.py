@@ -1,5 +1,5 @@
-"""Public entry points of the kNN, CF and LSH kernels, dispatched by tensor
-device.
+"""Public entry points of the kNN, CF, LSH and decode-attention kernels,
+dispatched by tensor device.
 
 A CUDA tensor goes to the hand-written CUDA kernel, which launches or
 raises; a CPU tensor goes to the plain version in ``ref``.  Nothing sends a
@@ -16,6 +16,8 @@ import functools
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.agg_refine import agg_refine_attention_cuda
+from repro_torch.kernels.aggregated_attention import aggregated_attention_cuda
 from repro_torch.kernels.candidate_topk import candidate_topk_cuda
 from repro_torch.kernels.cf_refine import cf_refine_cuda
 from repro_torch.kernels.cf_weights import cf_weights_cuda
@@ -32,6 +34,8 @@ KERNELS = {
     "lsh_hash": lsh_hash_cuda,
     "cf_weights": cf_weights_cuda,
     "cf_refine": cf_refine_cuda,
+    "agg_refine_attention": agg_refine_attention_cuda,
+    "aggregated_attention": aggregated_attention_cuda,
 }
 
 
@@ -167,3 +171,40 @@ def cf_refine(
                               shrink=shrink)
     return ref.cf_refine(active, active_mask, ratings, mask, idx, use,
                          shrink=shrink)
+
+
+@_probed("agg_refine_attention")
+def agg_refine_attention(
+    q: torch.Tensor, k_slots: torch.Tensor, v_slots: torch.Tensor,
+    counts: torch.Tensor, top_idx: torch.Tensor, use: torch.Tensor,
+    *, scale: float,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Exact re-attention over the selected buckets' live slots of a
+    bucket-major cache: the partial triple (m, l, acc)."""
+    if _on_card(q):
+        return agg_refine_attention_cuda(q, k_slots, v_slots, counts, top_idx,
+                                         use, scale=scale)
+    return ref.agg_refine_attention(q, k_slots, v_slots, counts, top_idx, use,
+                                    scale=scale)
+
+
+@_probed("aggregated_attention")
+def aggregated_attention_decode(
+    q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+    bucket_of: torch.Tensor, mean_k: torch.Tensor, mean_v: torch.Tensor,
+    counts: torch.Tensor, refined: torch.Tensor, *, scale: float,
+    valid_len: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Two-stage aggregated decode attention over a flat cache, for the
+    whole batch: [B,H,dk] queries -> [B,H,dv] f32.  ``valid_len`` [B] counts
+    the tokens written (all S when None)."""
+    if _on_card(q):
+        if valid_len is None:
+            valid_len = torch.full((q.shape[0],), k_cache.shape[1],
+                                   dtype=torch.int32, device=q.device)
+        return aggregated_attention_cuda(
+            q, k_cache, v_cache, bucket_of, mean_k, mean_v, counts, refined,
+            valid_len, scale=scale)
+    return ref.aggregated_attention_decode(
+        q, k_cache, v_cache, bucket_of, mean_k, mean_v, counts, refined,
+        scale=scale, valid_len=valid_len)

@@ -1,11 +1,14 @@
-"""Plain PyTorch versions of the kNN, CF and LSH kernels.
+"""Plain PyTorch versions of the kNN, CF, LSH and decode-attention kernels.
 
 Each function is the semantic ground truth of its CUDA kernel, written as
 ``src/repro/kernels/ref.py`` writes it: the expanded distance form
 ``max(|q|^2 - 2 q.p + |p|^2, 0)`` so that both sides round alike, a stable
 ascending sort for every selection (``torch.topk`` has no tie order;
 ``jax.lax.top_k`` breaks ties by the lowest index, as a stable sort does),
-and the CF refinement in its gathering einsum form.
+and the CF refinement in its gathering einsum form.  The decode-attention
+versions mask with the finite ``NEG`` sentinel (or -inf with an
+``isfinite`` mask, as the reference oracle does) and clamp every running
+max at ``NEG``, so an all-masked input gives exact zeros and never a NaN.
 ``ops`` sends CPU tensors here; on the card these run only when called by
 name, to be compared with the kernels.
 """
@@ -14,6 +17,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.aggregate import segment_sums
 from repro_torch.kernels.topk_stream import BIG
 
 
@@ -171,3 +175,134 @@ def cf_weights(
     u_sq = am @ (uc * uc).T
     den = torch.sqrt(torch.clamp_min(a_sq * u_sq, 1e-12))
     return num / den
+
+
+# ---------------------------------------------------------------------------
+# aggregated-KV decode attention
+# ---------------------------------------------------------------------------
+
+# Finite "minus infinity" of masked logits: exp(NEG - m) underflows to 0 for
+# any finite m, so no merge ever computes inf - inf.
+NEG = -1.0e30
+
+
+def aggregated_attention_decode(
+    q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+    bucket_of: torch.Tensor, mean_k: torch.Tensor, mean_v: torch.Tensor,
+    counts: torch.Tensor, refined: torch.Tensor, *, scale: float,
+    valid_len: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Two-stage aggregated decode attention over a batch: [B, H, dv] f32.
+
+    q [B,H,dk]; k_cache/v_cache [B,S,Hkv,dk|dv]; bucket_of [B,S]; mean_k/v
+    [B,K,Hkv,dk|dv]; counts [B,K]; refined [B,K] bool; valid_len [B] (tokens
+    written) or None.  Refined buckets contribute their exact tokens below
+    ``valid_len``; the other non-empty buckets contribute their centroid with
+    logit q.mean_k + log(count).  Query head h uses KV head h // (H // Hkv).
+    """
+    b, hq, dk = q.shape
+    s, hkv = k_cache.shape[1], k_cache.shape[2]
+    g = hq // hkv
+    qg = q.float().reshape(b, hkv, g, dk)
+    tok_live = refined.gather(1, bucket_of.long())             # [B,S]
+    if valid_len is not None:
+        t = torch.arange(s, device=q.device)
+        tok_live = tok_live & (t[None, :] < valid_len.reshape(b, 1))
+    lt = torch.einsum("bkgd,bskd->bkgs", qg, k_cache.float()) * scale
+    lt = torch.where(tok_live[:, None, None, :], lt, -torch.inf)
+    cent_live = ~refined & (counts > 0)                         # [B,K]
+    lc = torch.einsum("bkgd,bnkd->bkgn", qg, mean_k.float()) * scale
+    lc = torch.where(cent_live[:, None, None, :], lc, -torch.inf)
+    log_mult = torch.where(
+        cent_live, torch.log(torch.clamp_min(counts.float(), 1.0)), 0.0)
+    lc = lc + log_mult[:, None, None, :]
+    logits = torch.cat([lt, lc], dim=-1)
+    # Clamped at NEG: with every bucket empty (all logits -inf) the
+    # subtraction would be inf - inf; clamped, the result is exact zeros.
+    m = torch.clamp_min(logits.amax(dim=-1, keepdim=True), NEG)
+    w = torch.where(torch.isfinite(logits), torch.exp(logits - m), 0.0)
+    denom = torch.clamp_min(w.sum(dim=-1), 1e-30)
+    vals = torch.cat([v_cache.float().permute(0, 2, 1, 3),
+                      mean_v.float().permute(0, 2, 1, 3)], dim=2)
+    out = torch.einsum("bkgt,bktd->bkgd", w, vals) / denom[..., None]
+    return out.reshape(b, hq, -1)
+
+
+def masked_decode_attention(
+    q: torch.Tensor, keys: torch.Tensor, values: torch.Tensor,
+    bias: torch.Tensor, *, scale: float,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One masked decode pass, as a partial-softmax triple.
+
+    q [Hkv,G,dk]; keys/values [Hkv,T,dk|dv]; bias [T] added to every logit
+    (<= NEG/2 masks a key).  Returns (m [Hkv,G], l [Hkv,G], acc
+    [Hkv,G,dv]); an all-masked pass gives (NEG, 0, 0).
+    """
+    logits = torch.einsum("kgd,ktd->kgt", q.float(), keys.float()) * scale
+    logits = logits + bias.float()[None, None, :]
+    m = torch.clamp_min(logits.amax(dim=-1), NEG)
+    w = torch.where(bias[None, None, :] > NEG / 2,
+                    torch.exp(logits - m[..., None]), 0.0)
+    return m, w.sum(dim=-1), torch.einsum("kgt,ktd->kgd", w, values.float())
+
+
+def agg_refine_attention(
+    q: torch.Tensor, k_slots: torch.Tensor, v_slots: torch.Tensor,
+    counts: torch.Tensor, top_idx: torch.Tensor, use: torch.Tensor,
+    *, scale: float,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Stage-2 exact re-attention over the selected buckets' live slots.
+
+    q [B,Hkv,G,dk]; k_slots/v_slots [B,K,C,Hkv,dk|dv]; counts [B,K] (total
+    inserts, overflow included); top_idx/use [B,R] (use == 0 masks a
+    selection slot).  Row c of a selected bucket is live where c <
+    min(count, C), count > 0 and use != 0; every selection slot counts on
+    its own, duplicates included.  Returns the partial-softmax triple (m
+    [B,Hkv,G], l [B,Hkv,G], acc [B,Hkv,G,dv]); a fully masked selection
+    gives (NEG, 0, 0).  Gathers the [B,R,C,...] slot tensor; indices are
+    clipped to [0, K) as the kernel clips them.
+    """
+    b, hkv, g, dk = q.shape
+    kb, cap = k_slots.shape[1], k_slots.shape[2]
+    dv = v_slots.shape[-1]
+    idx = top_idx.long().clamp(0, kb - 1)
+    rows = torch.arange(b, device=q.device)[:, None]
+    k_sel = k_slots[rows, idx].float()                      # [B,R,C,Hkv,dk]
+    v_sel = v_slots[rows, idx].float()                      # [B,R,C,Hkv,dv]
+    cnt_sel = counts.gather(1, idx)                         # [B,R]
+    c = torch.arange(cap, device=q.device)
+    live = ((c[None, None, :] < torch.clamp_max(cnt_sel, cap)[:, :, None])
+            & (cnt_sel > 0)[:, :, None] & (use != 0)[:, :, None])  # [B,R,C]
+    logits = torch.einsum("bkgd,brckd->bkgrc", q.float(), k_sel) * scale
+    logits = torch.where(live[:, None, None], logits, NEG)
+    flat = logits.reshape(b, hkv, g, -1)                    # [B,Hkv,G,R*C]
+    m = flat.amax(dim=-1)
+    w = torch.where(flat > NEG / 2, torch.exp(flat - m[..., None]), 0.0)
+    vals = v_sel.permute(0, 3, 1, 2, 4).reshape(b, hkv, -1, dv)
+    return m, w.sum(dim=-1), torch.einsum("bkgt,bktd->bkgd", w, vals)
+
+
+def merge_partials(
+    m1: torch.Tensor, l1: torch.Tensor, a1: torch.Tensor,
+    m2: torch.Tensor, l2: torch.Tensor, a2: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Online-softmax merge of two partial triples; two empty (NEG, 0, 0)
+    triples merge to (NEG, 0, 0)."""
+    m = torch.maximum(m1, m2)
+    w1 = torch.exp(m1 - m)
+    w2 = torch.exp(m2 - m)
+    return m, l1 * w1 + l2 * w2, a1 * w1[..., None] + a2 * w2[..., None]
+
+
+def segment_mean(
+    data: torch.Tensor, ids: torch.Tensor, n_segments: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Bucket means and counts: [N,D], [N] -> ([K,D] f32, [K] int32).
+
+    The sums come from one stable sort of the ids, so they are the same bits
+    on every run (``index_add_`` on the card adds in no fixed order)."""
+    flat = data.float().reshape(data.shape[0], -1)
+    _, counts, (sums,) = segment_sums([flat], ids, n_segments)
+    mean = sums / torch.clamp_min(counts.float(), 1.0)[:, None]
+    return (mean.reshape((n_segments,) + tuple(data.shape[1:])),
+            counts.to(torch.int32))

@@ -46,7 +46,7 @@ def refine_distances_cuda(
     if n == 0:
         raise ValueError("train_x is empty: no row to refine against")
     fn = _build.entry("refine_distances", "refine_distances_f32", _ARGS)
-    with torch.cuda.device(dev):
+    with _build.on_device(dev):
         err = fn(queries.data_ptr(), train_x.data_ptr(), idx.data_ptr(),
                  valid.data_ptr(), nq, n, nb, dim, out.data_ptr(),
                  _build.stream_of(queries))

@@ -19,11 +19,15 @@ from _torch_parity import (
     topk_inputs,
 )
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.agg_refine import agg_refine_attention_cuda
+from repro_torch.kernels.aggregated_attention import aggregated_attention_cuda
 from repro_torch.kernels.cf_refine import cf_refine_cuda
 from repro_torch.kernels.distance_topk import distance_topk_cuda
 from repro_torch.kernels.lsh_hash import lsh_hash_cuda
+from repro_torch.kernels.topk_stream import MAX_K
 
 CF_TOL = 2e-4  # tests/test_kernels.py:63,317
+ATTN_TOL = 2e-5  # tests/test_kernels.py:108: f32 sums in another order
 
 
 @pytest.fixture
@@ -43,13 +47,17 @@ def _on(dev, *arrays):
     (1, 1, 1, 1, "l2", 1.0), (7, 3, 9, 5, "l2", 1.0),
     (130, 5000, 217, 6, "l2", 0.5), (64, 40, 12, 3, "l2", 0.0),
     (33, 777, 50, 17, "l2", 1.0), (33, 777, 50, 32, "dot", 0.8),
+    # wider than the kernel's k-best: rounds of MAX_K, a row at a time
+    (1, 64, 1024, 64, "dot", 0.9),       # rf 1.0 bucket selection, K = 64
+    (3, 500, 40, 70, "l2", 0.5), (2, 50, 8, 80, "dot", 0.6),
 ])
 def test_cuda_distance_topk(cuda, q, n, d, k, metric, valid_frac):
     qs, ps, labs, valid = _on(cuda, *topk_inputs(q + n + d, q, n, d,
                                                  valid_frac))
     before = distance_topk_cuda.launches
     got = ops.distance_topk(qs, ps, labs, valid, k=k, metric=metric)
-    assert distance_topk_cuda.launches == before + 1
+    rounds = 1 if k <= MAX_K else q * -(-k // MAX_K)
+    assert distance_topk_cuda.launches == before + rounds
     want = ref.distance_topk(qs, ps, labs, valid, k=k, metric=metric)
     next_d = ref.distance_topk(qs, ps, labs, valid, k=k + 1,
                                metric=metric)[0][:, k]
@@ -157,3 +165,146 @@ def test_cuda_kernels_refuse_what_they_do_not_take(cuda):
 
 def normal_on(dev, *shape):
     return th(normal(rng(len(shape)), *shape)).to(dev)
+
+
+# ---------------------------------------------------------------------------
+# decode attention.  bf16 caches are compared in f32 against the plain
+# version on the same bf16 inputs.
+# ---------------------------------------------------------------------------
+
+CACHE_DTYPES = [torch.float32, torch.bfloat16]
+
+
+def _agg_refine_case(dev, dtype, b, kb, cap, hkv, g, dk, dv, r, seed):
+    """Selections repeat, ``use`` masks some, one selected bucket is empty
+    and counts run past the capacity; the last sequence's selection is
+    fully masked."""
+    x = rng(seed)
+    q = th(normal(x, b, hkv, g, dk)).to(dev)
+    ks = th(normal(x, b, kb, cap, hkv, dk)).to(dev, dtype)
+    vs = th(normal(x, b, kb, cap, hkv, dv)).to(dev, dtype)
+    counts = x.integers(0, 2 * cap + 2, (b, kb)).astype(np.int32)
+    top = x.integers(0, kb, (b, r)).astype(np.int32)
+    top[:, -1] = top[:, 0]                    # a duplicate selection
+    counts[0, top[0, 1 % r]] = 0              # an empty selected bucket
+    use = x.random((b, r)) < 0.8
+    use[-1] = False
+    return (q, ks, vs, th(counts).to(dev), th(top).to(dev), th(use).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", CACHE_DTYPES)
+@pytest.mark.parametrize("b,kb,cap,hkv,g,dk,dv,r", [
+    (3, 8, 4, 2, 2, 16, 16, 3),               # smoke heads
+    (4, 64, 32, 8, 4, 128, 128, 16),          # qwen3-8b, rf 0.25
+    (4, 64, 32, 8, 4, 128, 128, 64),          # qwen3-8b, rf 1.0
+    (2, 10, 40, 1, 8, 64, 48, 5),             # MQA, dv != dk, C > 32
+])
+def test_cuda_agg_refine_attention(cuda, dtype, b, kb, cap, hkv, g, dk, dv,
+                                   r):
+    args = _agg_refine_case(cuda, dtype, b, kb, cap, hkv, g, dk, dv, r,
+                            b + kb + r)
+    scale = 1.0 / np.sqrt(dk)
+    before = agg_refine_attention_cuda.launches
+    got = ops.agg_refine_attention(*args, scale=scale)
+    assert agg_refine_attention_cuda.launches == before + 1
+    want = ref.agg_refine_attention(*args, scale=scale)
+    for gt, w, name in zip(got, want, ("m", "l", "acc")):
+        assert_close(gt, w, rtol=ATTN_TOL, atol=ATTN_TOL, err_msg=name)
+    m, l, acc = (t.cpu().numpy() for t in got)
+    assert (m[-1] <= ref.NEG / 2).all() and (l[-1] == 0).all()
+    assert (acc[-1] == 0).all() and np.isfinite(acc).all()
+    again = ops.agg_refine_attention(*args, scale=scale)
+    for gt, a in zip(got, again):             # a fixed merge order
+        assert torch.equal(gt, a)
+
+
+def _agg_attention_case(dev, dtype, b, s, kb, hq, hkv, dk, dv, seed):
+    x = rng(seed)
+    q = th(normal(x, b, hq, dk)).to(dev)
+    kc = th(normal(x, b, s, hkv, dk)).to(dev, dtype)
+    vc = th(normal(x, b, s, hkv, dv)).to(dev, dtype)
+    bucket_of = th(x.integers(0, kb, (b, s)).astype(np.int32)).to(dev)
+    mk = th(normal(x, b, kb, hkv, dk)).to(dev)
+    mv = th(normal(x, b, kb, hkv, dv)).to(dev)
+    counts = x.integers(0, 9, (b, kb)).astype(np.int32)
+    refined = (x.random((b, kb)) < 0.3) & (counts > 0)
+    return [q, kc, vc, bucket_of, mk, mv, th(counts).to(dev),
+            th(refined).to(dev)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", CACHE_DTYPES)
+@pytest.mark.parametrize("b,s,kb,hq,hkv,dk,dv", [
+    (2, 64, 8, 4, 2, 16, 16),                 # smoke heads
+    (4, 1024, 64, 32, 8, 128, 128),           # qwen3-8b
+    (2, 128, 10, 8, 1, 64, 48),               # MQA, dv != dk
+])
+def test_cuda_aggregated_attention(cuda, dtype, b, s, kb, hq, hkv, dk, dv):
+    case = _agg_attention_case(cuda, dtype, b, s, kb, hq, hkv, dk, dv,
+                               s + kb)
+    valid_len = th(np.asarray([s // 3, s, 1, s - 5][:b], np.int32)).to(cuda)
+    scale = 1.0 / np.sqrt(dk)
+    before = aggregated_attention_cuda.launches
+    got = ops.aggregated_attention_decode(*case, scale=scale,
+                                          valid_len=valid_len)
+    assert aggregated_attention_cuda.launches == before + 1
+    want = ref.aggregated_attention_decode(*case, scale=scale,
+                                           valid_len=valid_len)
+    assert_close(got, want, rtol=ATTN_TOL, atol=ATTN_TOL)
+    assert torch.equal(got, ops.aggregated_attention_decode(
+        *case, scale=scale, valid_len=valid_len))
+    # every bucket refined: exact attention over the written tokens
+    case[7] = case[6] > 0
+    assert_close(ops.aggregated_attention_decode(*case, scale=scale),
+                 ref.aggregated_attention_decode(*case, scale=scale),
+                 rtol=ATTN_TOL, atol=ATTN_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", CACHE_DTYPES)
+def test_cuda_aggregated_attention_all_empty_cache(cuda, dtype):
+    case = _agg_attention_case(cuda, dtype, 2, 64, 8, 4, 2, 16, 16, 1)
+    case[6] = torch.zeros_like(case[6])
+    case[7] = torch.zeros_like(case[7])
+    valid_len = torch.zeros(2, dtype=torch.int32, device=cuda)
+    got = ops.aggregated_attention_decode(*case, scale=0.25,
+                                          valid_len=valid_len)
+    assert bool((got == 0).all())
+
+
+@pytest.mark.cuda
+def test_cuda_decode_attention_refuses_what_it_does_not_take(cuda):
+    args = list(_agg_refine_case(cuda, torch.bfloat16, 2, 8, 4, 2, 2, 16,
+                                 16, 3, 0))
+    scale = 0.25
+
+    def refine(**swap):
+        a = dict(zip(("q", "k", "v", "counts", "top", "use"), args), **swap)
+        return ops.agg_refine_attention(*a.values(), scale=scale)
+
+    with pytest.raises(TypeError, match="top_idx"):
+        refine(top=args[4].long())
+    with pytest.raises(TypeError, match="use"):
+        refine(use=args[5].int())
+    with pytest.raises(TypeError, match="cache dtype"):
+        refine(k=args[1].half(), v=args[2].half())
+    with pytest.raises(ValueError, match="contiguous"):
+        refine(k=args[1].transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(ValueError, match="on cpu"):
+        refine(counts=args[3].cpu())
+    with pytest.raises(ValueError, match="key width"):
+        refine(q=args[0][..., :12].contiguous(),
+               k=args[1][..., :12].contiguous())
+    case = _agg_attention_case(cuda, torch.float32, 2, 64, 8, 32, 2, 16, 16,
+                               0)
+    with pytest.raises(ValueError, match="query heads per KV head"):
+        ops.aggregated_attention_decode(*case, scale=scale)
+    case = _agg_attention_case(cuda, torch.float32, 2, 64, 8, 4, 2, 16, 16,
+                               0)
+    with pytest.raises(TypeError, match="valid_len"):
+        ops.aggregated_attention_decode(
+            *case, scale=scale, valid_len=torch.ones(2, device=cuda))
+    with pytest.raises(TypeError, match="refined"):
+        ops.aggregated_attention_decode(*case[:7], case[7].int(),
+                                        scale=scale)

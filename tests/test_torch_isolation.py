@@ -16,10 +16,13 @@ torch = pytest.importorskip("torch")  # the port's tests need PyTorch
 
 import repro_torch
 from repro_torch.apps import cf, knn
+from repro_torch.configs import get_config
 from repro_torch.convert import (
-    cf_aggregates_from_numpy, knn_aggregates_from_numpy, lsh_params_from_numpy,
+    cf_aggregates_from_numpy, knn_aggregates_from_numpy,
+    lm_cache_lsh_from_numpy, lm_params_from_numpy, lsh_params_from_numpy,
 )
 from repro_torch.core import lsh
+from repro_torch.models import model as lm
 from repro_torch.data.synthetic import (
     holdout_split, make_mfeat_like, make_netflix_like,
 )
@@ -35,8 +38,11 @@ def _modules():
 
 def test_every_module_imports_without_jax_or_the_reference():
     modules = _modules()
-    assert "repro_torch.apps.knn" in modules and len(modules) >= 24
-    assert "repro_torch.apps.cf" in modules
+    assert "repro_torch.apps.knn" in modules and len(modules) >= 40
+    for m in ("apps.cf", "configs.qwen3_8b", "models.aggregated_kv",
+              "models.model", "serve.lm.engine", "obs.metrics",
+              "kernels.agg_refine", "kernels.aggregated_attention"):
+        assert f"repro_torch.{m}" in modules
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"
@@ -68,7 +74,7 @@ def _imported_roots(path: Path) -> set[str]:
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT)) for p in [*PORT.rglob("*.py"),
                                        ROOT / "chip_smoke.py",
-                                       ROOT / "tools" / "torch_knn_profile.py"]))
+                                       *(ROOT / "tools").glob("torch_*.py")]))
 def test_no_source_names_jax_or_the_reference(path):
     roots = _imported_roots(ROOT / path)
     assert not roots & {"jax", "jaxlib", "repro"}, roots
@@ -90,7 +96,33 @@ def _entry_points():
     r = np.tile(np.array([[1, 0, 5], [3, 2, 0]], np.float32), (10, 1))
     m = (r > 0).astype(np.float32)
     k4 = np.zeros((4, 3))
+    smoke = get_config("qwen3-8b", smoke=True)
+    agg = smoke.with_(agg_kv=True, n_layers=1)
+    unit = {"norm1": np.ones(64), "norm2": np.ones(64),
+            "attn": {"wq": np.zeros((1, 64, 64)), "wk": np.zeros((1, 64, 32)),
+                     "wv": np.zeros((1, 64, 32)), "wo": np.zeros((1, 64, 64)),
+                     "q_norm": np.ones((1, 16)), "k_norm": np.ones((1, 16))},
+            "mlp": {"w_gate": np.zeros((1, 64, 128)),
+                    "w_up": np.zeros((1, 64, 128)),
+                    "w_down": np.zeros((1, 128, 64))}}
+    unit["norm1"], unit["norm2"] = np.ones((1, 64)), np.ones((1, 64))
+    tree = {"embed": np.zeros((256, 64)), "final_norm": np.ones(64),
+            "lm_head": np.zeros((64, 256)), "head_blocks": {},
+            "units": {"b0": unit}, "tail_blocks": {}}
+    draws = {"head": {}, "tail": {}, "units": {"b0": {
+        "lsh_a": np.zeros((1, 32, 4)), "lsh_b": np.zeros((1, 4))}}}
     return {
+        "lm.init_params": lambda **kw: tuple(lm.init_params(
+            smoke.with_(n_layers=1), torch.Generator(), **kw).parameters()),
+        "lm.draw_lsh": lambda **kw: lm.draw_lsh(agg, torch.Generator(),
+                                                **kw)[0],
+        "lm.init_caches": lambda **kw: lm.init_caches(
+            agg, batch=1, s_max=8,
+            lsh=lm.draw_lsh(agg, torch.Generator(), device="cpu"), **kw)[0],
+        "lm_params_from_numpy": lambda **kw: tuple(lm_params_from_numpy(
+            tree, smoke.with_(n_layers=1), **kw).parameters()),
+        "lm_cache_lsh_from_numpy": lambda **kw: lm_cache_lsh_from_numpy(
+            draws, agg, **kw)[0],
         "cf.run_exact": lambda **kw: cf.run_exact(r, m, r[:2], m[:2], **kw),
         "cf.run_accurateml": lambda **kw: cf.run_accurateml(
             r, m, r[:2], m[:2], compression_ratio=5.0, eps_max=0.1,
@@ -138,7 +170,7 @@ def test_entry_points_need_the_card_unless_asked_for_the_cpu(no_cuda, name):
 def _tensors(out):
     if isinstance(out, torch.Tensor):
         yield out
-    elif isinstance(out, tuple):
+    elif isinstance(out, (tuple, list)):
         for x in out:
             yield from _tensors(x)
     elif dataclasses.is_dataclass(out):

@@ -1,4 +1,5 @@
-"""The port's kNN, CF and LSH kernels against the JAX package's.
+"""The port's kNN, CF, LSH and decode-attention kernels against the JAX
+package's.
 
 On the CPU the port's ``kernels.ops`` runs the plain PyTorch versions; they
 are held against the JAX Pallas kernel bodies in interpret mode and against
@@ -17,6 +18,10 @@ from _torch_parity import (
 )
 from repro.kernels import ref as _jref
 from repro.kernels import topk_stream as jts
+from repro.kernels import ops as jops
+from repro.kernels.aggregated_attention import (
+    aggregated_attention_pallas, masked_decode_attention,
+)
 from repro.kernels.cf_refine import cf_refine_pallas
 from repro.kernels.cf_weights import cf_weights_pallas
 from repro.kernels.distance_topk import distance_topk_pallas
@@ -138,6 +143,39 @@ def test_distance_topk_ties_go_to_the_lowest_index():
     want_d, want_l = jref.distance_topk(jx(qs), jx(pts), jx(labs), k=7)
     np.testing.assert_array_equal(np_of(got_d), np_of(want_d))
     np.testing.assert_array_equal(np_of(got_l), np_of(want_l))
+
+
+@pytest.mark.parametrize("q,n,d,k,metric,valid_frac,dup", [
+    (3, 100, 16, topk_stream.MAX_K + 8, "dot", 0.9, False),
+    (2, 90, 8, 2 * topk_stream.MAX_K + 3, "l2", 1.0, True),   # exact ties
+    (2, 50, 8, 70, "l2", 0.6, False),     # fewer points than k: padding
+    (4, 40, 8, topk_stream.MAX_K + 1, "dot", 0.0, False),     # all masked
+])
+def test_select_in_rounds_ranks_as_one_pass(q, n, d, k, metric, valid_frac,
+                                            dup):
+    """The rounds of at most MAX_K that the CUDA wrapper takes for a wider
+    k, here over the plain selection: the same scores in the same order and
+    the same labels as one pass, padding (BIG, label 0)."""
+    qs, ps, labs, valid = topk_inputs(q + n + k, q, n, d, valid_frac,
+                                      n_labels=n)
+    if dup:
+        ps[n // 2:] = ps[:n - n // 2]
+    args = (th(qs), th(ps), th(labs), th(valid))
+    got_d, got_l = topk_stream.select_in_rounds(ref.distance_topk, *args,
+                                                k=k, metric=metric)
+    assert got_d.shape == got_l.shape == (q, k)
+    assert got_l.dtype == torch.int32
+    # one pass over each row alone: its products round as the rounds' do
+    want_d, want_l = (torch.cat(t) for t in zip(*(
+        ref.distance_topk(args[0][i:i + 1], *args[1:], k=k, metric=metric)
+        for i in range(q))))
+    assert_topk_match(got_d, got_l, want_d, want_l, rtol=0, atol=0)
+    assert (np_of(got_l)[np_of(got_d) >= BIG / 2] == 0).all()
+    if k <= n:
+        jd, jl = jref.distance_topk(jx(qs), jx(ps), jx(labs), jx(valid), k=k,
+                                    metric=metric)
+        next_d = ref.distance_topk(*args, k=k + 1, metric=metric)[0][:, k]
+        assert_topk_match(got_d, got_l, jd, jl, next_d)
 
 
 def test_distance_topk_rejects_unknown_metric():
@@ -400,8 +438,10 @@ def test_kernel_wrappers_refuse_cpu_tensors(name):
 
 @pytest.mark.parametrize("k", [0, 33])
 def test_selection_wrappers_refuse_k_out_of_range(k):
+    """k < 1 for both; k > MAX_K for candidate_topk only: distance_topk
+    takes a wider k in rounds, so at 33 it refuses just the CPU tensors."""
     args, _ = _small_args()["distance_topk"]
-    with pytest.raises(ValueError, match="k="):
+    with pytest.raises(ValueError, match="k=" if k < 1 else "CUDA"):
         distance_topk_cuda(*args, k=k)
     args, _ = _small_args()["candidate_topk"]
     with pytest.raises(ValueError, match="k="):
@@ -427,3 +467,174 @@ def test_probe_sees_every_op_call():
         ops.set_probe(None)
     assert rec.ops == list(_small_args())
     assert ops.get_probe() is None
+
+
+# ---------------------------------------------------------------------------
+# decode attention: agg_refine_attention, aggregated_attention_decode
+# (the reference's attention tolerance, tests/test_kernels.py:108 and
+# tests/test_decode.py:255)
+# ---------------------------------------------------------------------------
+
+ATTN_TOL = 1e-5
+
+
+def _agg_refine_inputs(seed, b=3, kb=8, cap=4, hkv=2, g=2, dk=16, dv=16,
+                       r=3):
+    """tests/test_decode.py:239's shapes: counts run past the capacity,
+    selections repeat and ``use`` masks some."""
+    x = rng(seed)
+    return (normal(x, b, hkv, g, dk), normal(x, b, kb, cap, hkv, dk),
+            normal(x, b, kb, cap, hkv, dv),
+            x.integers(0, cap + 3, (b, kb)).astype(np.int32),
+            x.integers(0, kb, (b, r)).astype(np.int32),
+            x.integers(0, 2, (b, r)).astype(np.int32))
+
+
+@pytest.mark.parametrize("force", ["ref", "pallas_interpret"])
+@pytest.mark.parametrize("seed,shape", [
+    (1, {}), (2, dict(b=2, kb=6, cap=8, hkv=1, g=4, dk=32, dv=24, r=5)),
+])
+def test_agg_refine_attention_parity(force, seed, shape):
+    args = _agg_refine_inputs(seed, **shape)
+    want = jops.agg_refine_attention(*(jx(a) for a in args), scale=0.25,
+                                     force=force)
+    got = ops.agg_refine_attention(*(th(a) for a in args[:5]),
+                                   th(args[5]) != 0, scale=0.25)
+    for name, a, w in zip(("m", "l", "acc"), got, want):
+        assert_close(a, w, rtol=ATTN_TOL, atol=ATTN_TOL, err_msg=name)
+
+
+def test_agg_refine_attention_fully_masked_is_the_empty_partial():
+    args = _agg_refine_inputs(3)
+    use = np.zeros_like(args[5])
+    m, l, acc = ops.agg_refine_attention(*(th(a) for a in args[:5]),
+                                         th(use) != 0, scale=0.25)
+    want = jops.agg_refine_attention(*(jx(a) for a in args[:5]), jx(use),
+                                     scale=0.25, force="pallas_interpret")
+    assert float(m.max()) <= ref.NEG / 2
+    assert (np_of(l) == 0).all() and (np_of(acc) == 0).all()
+    assert_close(m, want[0], rtol=0, atol=0)
+
+
+def _agg_attn_inputs(seed, b, s, kb, hq, hkv, dk, dv, refine_frac=0.3):
+    """tests/test_kernels.py:72's construction: random buckets, their means
+    and counts, the first refine_frac of the buckets refined (non-empty
+    ones only)."""
+    x = rng(seed)
+    k_cache = normal(x, b, s, hkv, dk)
+    v_cache = normal(x, b, s, hkv, dv)
+    bucket_of = x.integers(0, kb, (b, s)).astype(np.int32)
+    counts = np.stack([np.bincount(r, minlength=kb) for r in bucket_of])
+    mean_k = np.zeros((b, kb, hkv, dk), np.float32)
+    mean_v = np.zeros((b, kb, hkv, dv), np.float32)
+    for i in range(b):
+        np.add.at(mean_k[i], bucket_of[i], k_cache[i])
+        np.add.at(mean_v[i], bucket_of[i], v_cache[i])
+    mean_k /= np.maximum(counts, 1)[:, :, None, None]
+    mean_v /= np.maximum(counts, 1)[:, :, None, None]
+    n_ref = max(1, int(refine_frac * kb))
+    refined = (np.arange(kb) < n_ref)[None, :] & (counts > 0)
+    return [normal(x, b, hq, dk), k_cache, v_cache, bucket_of, mean_k,
+            mean_v, counts.astype(np.int32), refined]
+
+
+def _pallas_batch(case, scale, valid_len):
+    """The JAX kernel in interpret mode, one sequence at a time (the JAX
+    package vmaps it over the batch)."""
+    return np.stack([np.asarray(aggregated_attention_pallas(
+        *(jx(a[i]) for a in case), scale=scale, valid_len=int(valid_len[i]),
+        tile=64, interpret=True)) for i in range(case[0].shape[0])])
+
+
+@pytest.mark.parametrize("s,kb,hq,hkv,dk,dv", [
+    (64, 8, 4, 2, 16, 16),
+    (200, 16, 8, 8, 32, 32),
+    (128, 10, 8, 1, 64, 48),   # MQA + dv != dk (MLA latent shape)
+])
+def test_aggregated_attention_decode_parity(s, kb, hq, hkv, dk, dv):
+    case = _agg_attn_inputs(s + kb, 2, s, kb, hq, hkv, dk, dv)
+    scale = 1.0 / np.sqrt(dk)
+    valid_len = np.asarray([s - 3, s // 2], np.int32)
+    want = _pallas_batch(case, scale, valid_len)
+    got = ops.aggregated_attention_decode(
+        *(th(a) for a in case), scale=scale, valid_len=th(valid_len))
+    assert_close(got, want, rtol=ATTN_TOL, atol=ATTN_TOL)
+    # the JAX plain version (the oracle the JAX model calls on the CPU)
+    oracle = np.stack([np.asarray(_jref.aggregated_attention_decode(
+        *(jx(a[i]) for a in case), scale, int(valid_len[i])))
+        for i in range(2)])
+    assert_close(got, oracle, rtol=ATTN_TOL, atol=ATTN_TOL)
+
+
+def test_aggregated_attention_all_refined_equals_exact():
+    """Every non-empty bucket refined: plain softmax attention over the
+    cache (tests/test_kernels.py:116)."""
+    s, kb, hq, hkv, dk = 96, 12, 4, 2, 16
+    case = _agg_attn_inputs(0, 2, s, kb, hq, hkv, dk, dk)
+    case[7] = case[6] > 0
+    scale = 1.0 / np.sqrt(dk)
+    got = np_of(ops.aggregated_attention_decode(*(th(a) for a in case),
+                                                scale=scale))
+    q, k_cache, v_cache = case[0], case[1], case[2]
+    g = hq // hkv
+    for i in range(2):
+        for h in range(hq):
+            logits = k_cache[i, :, h // g] @ q[i, h] * scale
+            p = np.exp(logits - logits.max())
+            want = (p / p.sum()) @ v_cache[i, :, h // g]
+            np.testing.assert_allclose(got[i, h], want, rtol=2e-5, atol=2e-5)
+    assert_close(got, _pallas_batch(case, scale, np.full(2, s)),
+                 rtol=ATTN_TOL, atol=ATTN_TOL)
+
+
+def test_aggregated_attention_all_empty_cache_gives_zeros():
+    s, kb, hq, hkv, dk = 32, 4, 4, 2, 16
+    case = _agg_attn_inputs(5, 2, s, kb, hq, hkv, dk, dk)
+    case[6] = np.zeros_like(case[6])           # every bucket empty
+    case[7] = np.zeros_like(case[7])
+    valid_len = np.zeros(2, np.int32)           # nothing written
+    got = np_of(ops.aggregated_attention_decode(
+        *(th(a) for a in case), scale=0.25, valid_len=th(valid_len)))
+    assert np.isfinite(got).all() and (got == 0).all()
+    want = _pallas_batch(case, 0.25, valid_len)
+    assert np.isfinite(want).all()
+    assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("hkv,g,t,dk,dv", [(2, 2, 40, 16, 16),
+                                           (1, 8, 70, 64, 48)])
+def test_masked_decode_attention_parity(hkv, g, t, dk, dv):
+    x = rng(t + dv)
+    q, keys, values = (normal(x, hkv, g, dk), normal(x, hkv, t, dk),
+                       normal(x, hkv, t, dv))
+    bias = np.where(x.random(t) < 0.6, np.log(x.integers(1, 9, t)),
+                    ref.NEG).astype(np.float32)
+    want = masked_decode_attention(jx(q), jx(keys), jx(values), jx(bias),
+                                   scale=0.3, tile=64, interpret=True)
+    got = ref.masked_decode_attention(th(q), th(keys), th(values), th(bias),
+                                      scale=0.3)
+    for name, a, w in zip(("m", "l", "acc"), got, want):
+        assert_close(a, w, rtol=ATTN_TOL, atol=ATTN_TOL, err_msg=name)
+
+
+def test_merge_partials_and_segment_mean_parity():
+    x = rng(11)
+    parts = [normal(x, 3, 2), np.abs(normal(x, 3, 2)), normal(x, 3, 2, 5)]
+    empty = [np.full((3, 2), ref.NEG, np.float32),
+             np.zeros((3, 2), np.float32), np.zeros((3, 2, 5), np.float32)]
+    other_parts = [normal(x, 3, 2), np.abs(normal(x, 3, 2)),
+                   normal(x, 3, 2, 5)]
+    for other in (other_parts, empty):
+        want = _jref.merge_partials(*(jx(a) for a in parts + other))
+        got = ref.merge_partials(*(th(a) for a in parts + other))
+        for a, w in zip(got, want):
+            assert_close(a, w, rtol=ATTN_TOL, atol=ATTN_TOL)
+    both_empty = ref.merge_partials(*(th(a) for a in empty + empty))
+    assert (np_of(both_empty[0]) == np.float32(ref.NEG)).all()
+    assert (np_of(both_empty[1]) == 0).all()
+    data, ids = normal(x, 40, 12), x.integers(0, 7, 40).astype(np.int32)
+    ids[ids == 5] = 6                            # one empty segment
+    want_m, want_c = _jref.segment_mean(jx(data), jx(ids), 8)
+    got_m, got_c = ref.segment_mean(th(data), th(ids), 8)
+    assert_close(got_m, want_m, rtol=ATTN_TOL, atol=ATTN_TOL)
+    np.testing.assert_array_equal(np_of(got_c), np.asarray(want_c))
