@@ -33,13 +33,16 @@ What it does, in order:
      d_model 4096, 32 query over 8 KV heads of 128, d_ff 12,288, vocab
      151,936 padded to 152,064, bf16, random weights from seed 0) served by
      ``DecodeEngine`` with 4 slots, s_max 1024 and compression 16 (64
-     buckets of 32 slots): four 256-token prompts prefilled once (batch 1,
+     buckets of 32 slots): four 128-token prompts prefilled once (batch 1,
      exact), then at refine_frac 0, 0.05, 0.25 and 1.0 the same prefixes
      re-inserted and 31 decode steps each, first in the bucket-major
      layout (``agg_refine_attention``), then in the flat layout
      (``aggregated_attention``), both with ``distance_topk`` selecting the
-     buckets; per level tokens/s, step p50/p99, KL and greedy-token
-     agreement against rf 1.0 (benchmarks/decode_bench.py) and the largest
+     buckets in its batched regime (one launch a layer for the four
+     sequences: 36 a decode step at every refine_frac above 0 and 36 a
+     prefill token, which the run checks); per level tokens/s, step
+     p50/p99, KL and greedy-token agreement against rf 1.0
+     (benchmarks/decode_bench.py) and the largest
      bucket count against the capacity; then decode_bench's exactness guard
      in f32 at full width, 2 layers deep: at rf 1.0 the engine's tokens
      equal an exact-attention decode's and its logits agree within 1e-4,
@@ -47,7 +50,12 @@ What it does, in order:
 3. holds each kernel against its plain PyTorch version (``kernels/ref.py``)
    on the very inputs the paths gave it, at every shape it was called with,
    and times kernel, plain version and, where one PyTorch call computes the
-   same function, that call (``library_ms``);
+   same function, that call (``library_ms``); ``distance_topk`` at each of
+   its shapes: the kNN shapes (wide regime) and the LM's batched ones (B 4
+   at k 4, 16 and 64, B 1 at k 64).  Each time is read twice in alternate
+   runs: with the card given a head start (its time alone: ``ms``,
+   ``plain_ms``, ``library_ms``) and without one (the host's gaps
+   included, as on the path: ``no_head_start``);
 4. checks the end-to-end answers of the three paths on a small input
    against the same functions run on the CPU, and that aggregation gives
    identical bits on two runs;
@@ -153,6 +161,9 @@ ATTN_KERNELS = ("agg_refine_attention", "aggregated_attention")
 # cores and HBM3 bandwidth, both at the full 700 W power limit.
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
+# Cycles the card spins before each timed run: about 2.5 ms at the H100's
+# 1.98 GHz, longer than the host takes to enqueue any timed call.
+HEAD_START_CYCLES = 5_000_000
 
 REPLACES = {
     "distance_topk": "src/repro/kernels/distance_topk.py:84",
@@ -217,9 +228,14 @@ class CaptureProbe:
 # timing and bounds
 # ---------------------------------------------------------------------------
 
-def bench_ms(torch, fn, flush) -> float:
-    """Median CUDA-event time of fn(), the L2 cache flushed before each run
-    (the main path finds its large inputs cold)."""
+def bench_ms(torch, fn, flush) -> tuple[float, float]:
+    """Median CUDA-event times of fn(), the L2 cache flushed before each run
+    (the main path finds its large inputs cold), with and without a head
+    start, in alternate runs.  With it the card spins HEAD_START_CYCLES
+    before the start event, so that the host has enqueued all of fn()
+    before the card reaches it: the card's time alone.  Without it a host
+    slower than the card (30-100 µs of Python around some 10 µs of card
+    time) counts too, as it does on the main path."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -230,15 +246,18 @@ def bench_ms(torch, fn, flush) -> float:
     end.synchronize()
     first = start.elapsed_time(end)
     reps = max(3, min(20, int(2000.0 / max(first, 1e-3))))
-    times = []
+    times = {True: [], False: []}
     for _ in range(reps):
-        flush.zero_()
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+        for head_start in (True, False):
+            flush.zero_()
+            if head_start:
+                torch.cuda._sleep(HEAD_START_CYCLES)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times[head_start].append(start.elapsed_time(end))
+    return statistics.median(times[True]), statistics.median(times[False])
 
 
 def work(torch, op, args, kwargs):
@@ -247,12 +266,16 @@ def work(torch, op, args, kwargs):
     these inputs."""
     k = kwargs.get("k")
     if op == "distance_topk":
+        # 2-D, or batched ([B,Q,D] x [B,N,D]): only the valid points' rows
+        # need to be read and scored
         q, p, labels = args[:3]
         valid = args[3] if len(args) > 3 else kwargs.get("valid")
-        nq, d = q.shape
-        n = p.shape[0]
-        nbytes = 4 * (nq * d + n * d + n) + (n if valid is not None else 0)
-        return 2.0 * nq * n * d, nbytes + 8 * nq * k
+        nq, d = q.shape[-2:]
+        b, n = (q.shape[0] if q.dim() == 3 else 1), p.shape[-2]
+        live = b * n if valid is None else int(valid.expand(b, n).sum())
+        nbytes = 4 * (b * nq * d + live * d + labels.numel()) + (
+            valid.numel() if valid is not None else 0)
+        return 2.0 * nq * live * d, nbytes + 8 * b * nq * k
     if op == "candidate_topk":
         dists = args[0]
         nq, m = dists.shape
@@ -433,8 +456,10 @@ def check_kernel(torch, ref, topk_stream, op, wrapper, args, kwargs):
     if op in ("distance_topk", "candidate_topk"):
         k = kwargs["k"]
         ext_d, _ = getattr(ref, op)(*args, **{**kwargs, "k": k + 1})
+        rows = (lambda t: t.reshape(-1, t.shape[-1]))   # batched: [B*Q, k]
         err, mism, ties, ex, _ = compare_topk(
-            torch, big, got[0], got[1], want[0], want[1], ext_d[:, k]
+            torch, big, rows(got[0]), rows(got[1]), rows(want[0]),
+            rows(want[1]), rows(ext_d)[:, k]
         )
         return {"max_abs_err": err, "label_mismatch": mism,
                 "near_ties": ties, "near_tie_examples": ex}
@@ -1026,9 +1051,15 @@ def lm_path(torch, ops, probe, engine_cls, model, cfg, layout, prompts,
              f"{sorted(set(LM_KERNELS[layout]) - caught)} not captured")
     jobs[f"lm {layout} prefill"] = {"ms": sum(prefill_ms),
                                     "launches": ops.launch_counts()}
+    # one batched selection a layer: n_layers launches a token
+    sel_per_token = ops.launch_counts()["distance_topk"] / prompts.size
     print(f"LM {layout}: prefill of {len(prompts)} x {prompts.shape[1]} "
           f"tokens, batch 1: {[round(m, 1) for m in prefill_ms]} ms "
-          f"({sum(prefill_ms) / prompts.size:.2f} ms a token)")
+          f"({sum(prefill_ms) / prompts.size:.2f} ms a token), "
+          f"distance_topk {sel_per_token:g} launches a token")
+    if sel_per_token != cfg.n_layers:
+        fail(f"LM {layout} prefill: {sel_per_token:g} distance_topk launches "
+             f"a token, expected one a layer ({cfg.n_layers})")
     ops.set_probe(probe)
     for rf in LM_SWEEP:
         probe.tag = f"{layout} rf={rf}"
@@ -1043,6 +1074,12 @@ def lm_path(torch, ops, probe, engine_cls, model, cfg, layout, prompts,
                                           LM_NEW_TOKENS - 1)
         after = ops.launch_counts()
         launches = {op: after[op] - before[op] for op in LM_KERNELS[layout]}
+        per_step = {op: n / (LM_NEW_TOKENS - 1) for op, n in launches.items()}
+        # one batched selection a layer for the LM_SLOTS sequences
+        want = cfg.n_layers if rf > 0 else 0
+        if per_step["distance_topk"] != want:
+            fail(f"LM {layout} rf={rf}: {per_step['distance_topk']:g} "
+                 f"distance_topk launches a step, expected {want}")
         jobs[f"lm {layout} rf={rf}"] = {"ms": sum(times),
                                         "launches": launches}
         outs[rf] = (toks, logits)
@@ -1051,7 +1088,8 @@ def lm_path(torch, ops, probe, engine_cls, model, cfg, layout, prompts,
         levels[str(rf)] = {
             "tokens_per_s": (LM_NEW_TOKENS - 1) * LM_SLOTS / sum(times) * 1e3,
             "step_p50_ms": statistics.median(times), "step_p99_ms": q[98],
-            "launches": launches, "step_bytes": engine.step_bytes(rf),
+            "launches": launches, "launches_per_step": per_step,
+            "step_bytes": engine.step_bytes(rf),
             "max_bucket_count": worst, "capacity": cap,
         }
     ref_toks, ref_logits = outs[1.0]
@@ -1069,7 +1107,8 @@ def lm_path(torch, ops, probe, engine_cls, model, cfg, layout, prompts,
               f"{lv['step_p99_ms']:.2f} ms, KL vs rf 1.0 "
               f"{lv['kl_vs_rf1']:.4g} (first step "
               f"{lv['kl_first_step']:.4g}), agreement "
-              f"{lv['token_agreement']:.3f}, launches {lv['launches']}, "
+              f"{lv['token_agreement']:.3f}, launches {lv['launches']} "
+              f"({lv['launches_per_step']} a step), "
               f"largest bucket {lv['max_bucket_count']} / {lv['capacity']}")
     counts = ops.launch_counts()
     check_launched(f"LM {layout}", counts, LM_KERNELS[layout])
@@ -1245,13 +1284,17 @@ def kernel_row(torch, ref, topk_stream, ops, op, calls, counts, jobs, flush):
     for key, (args, kwargs) in ranked if every else ranked[:1]:
         b_ms, b_by = bound_ms(*work(torch, op, args, kwargs))
         lib = library_call(torch, op, args, kwargs)
+        ms, ms_nh = bench_ms(torch, lambda: wrapper(*args, **kwargs), flush)
+        plain, plain_nh = bench_ms(torch, plain_call(ref, op, args, kwargs),
+                                   flush)
+        lib_ms, lib_nh = bench_ms(torch, lib, flush) if lib else (None, None)
         timed.append({
             "shape": _shape(key, args, kwargs),
-            "ms": bench_ms(torch, lambda: wrapper(*args, **kwargs), flush),
-            "plain_ms": bench_ms(torch, plain_call(ref, op, args, kwargs),
-                                 flush),
-            "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": bench_ms(torch, lib, flush) if lib else None,
+            "ms": ms, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            # the same runs' other half: no head start, the host's gaps in
+            "no_head_start": {"ms": ms_nh, "plain_ms": plain_nh,
+                              "library_ms": lib_nh},
         })
     top = timed[0]
     row = {
@@ -1262,7 +1305,7 @@ def kernel_row(torch, ref, topk_stream, ops, op, calls, counts, jobs, flush):
                              if op in j["launches"]},
         "max_abs_err": max(s["max_abs_err"] for s in summaries),
         **{key: top[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                     "library_ms")},
+                                     "library_ms", "no_head_start")},
         "timed_shape": top["shape"],
         "shapes_checked": len(summaries),
         "label_mismatch": sum(s["label_mismatch"] for s in summaries),
@@ -1275,7 +1318,8 @@ def kernel_row(torch, ref, topk_stream, ops, op, calls, counts, jobs, flush):
         row["other_shapes"] = timed[1:]
     print(f"{op}: {top['ms']:.3f} ms (plain {top['plain_ms']:.3f}, bound "
           f"{top['bound_ms']:.4f} by {top['bound_by']}, library "
-          f"{top['library_ms']}) over {len(summaries)} shapes")
+          f"{top['library_ms']}; without the head start "
+          f"{top['no_head_start']}) over {len(summaries)} shapes")
     return row
 
 

@@ -1,11 +1,11 @@
-// The fp32 cross-product tile shared by distance_topk and knn_distance.
+// The 64 x 64 fp32 staging of cf_weights.
 //
-// A block of 256 threads computes the products of a 64-query by 64-point
-// tile.  Feature columns are staged 16 at a time through shared memory,
-// transposed so that each thread reads its 4 queries and 4 points with one
-// broadcast or conflict-free access each, and every thread keeps a 4 x 4
-// block of sums in registers (register blocking: 8 shared loads feed 16
-// FMAs).  fp32 throughout, no TF32: the reference is fp32.
+// A block of 256 threads computes a 64-query by 64-user tile.  Feature
+// columns are staged 16 at a time through shared memory, transposed so that
+// each thread reads its 4 queries and 4 users with one broadcast or
+// conflict-free access each, and every thread keeps a 4 x 4 block of sums
+// in registers.  fp32 throughout, no TF32: the reference is fp32.
+// (knn_distance and distance_topk use the wider tile of fp32_tile.cuh.)
 #pragma once
 
 #include <cuda_runtime.h>
@@ -29,52 +29,5 @@ __device__ __forceinline__ void stage_tile(const float* __restrict__ a,
     s[c][r] = (gr < rows && gc < dim)
                   ? a[static_cast<size_t>(gr) * dim + gc]
                   : 0.f;
-  }
-}
-
-// acc[i][j] = q[q0 + ty + 16 i] . p[p0 + tx + 16 j] for thread (ty, tx).
-// QNORM / PNORM also accumulate |q|^2 into qq[i] and |p|^2 into pp[j] from
-// the staged values.  Rows at or past nq / np read as zero.
-template <bool QNORM, bool PNORM>
-__device__ __forceinline__ void tile_products(
-    const float* __restrict__ q, int nq, const float* __restrict__ p, int np,
-    int dim, int q0, int p0, float (*qs)[kPitch], float (*ps)[kPitch],
-    float (&acc)[4][4], float (&qq)[4], float (&pp)[4]) {
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    qq[i] = 0.f;
-    pp[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  }
-  for (int c0 = 0; c0 < dim; c0 += kDepth) {
-    stage_tile(q, nq, dim, q0, c0, qs);
-    stage_tile(p, np, dim, p0, c0, ps);
-    __syncthreads();
-#pragma unroll
-    for (int c = 0; c < kDepth; ++c) {
-      float a[4];
-      float b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = qs[c][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = ps[c][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
-      if (QNORM) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) qq[i] = fmaf(a[i], a[i], qq[i]);
-      }
-      if (PNORM) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) pp[j] = fmaf(b[j], b[j], pp[j]);
-      }
-    }
-    __syncthreads();
   }
 }

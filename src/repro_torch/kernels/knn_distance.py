@@ -14,7 +14,8 @@ from repro_torch.kernels import _build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGS = [_P, _P, _I, _I, _I, _P, _P]
-_MAX_Q = 65535 * 64  # grid.y holds one 64-query tile per block row
+_BM = 128            # queries per block tile (fp32_tile.cuh)
+_MAX_Q = 65535 * _BM  # grid.y holds one 128-query tile per block row
 
 
 def knn_distance_cuda(queries: torch.Tensor,

@@ -106,6 +106,9 @@ def distance_topk(
 
     ``metric="l2"`` scores squared-L2 distance; ``metric="dot"`` scores the
     negated dot product, so the k smallest scores are the most correlated.
+    A leading batch dimension on queries and points ([B,Q,D], [B,N,D];
+    labels and ``valid`` [N] or [B,N]) selects each item on its own, as
+    ``jax.vmap`` of the reference does, in one call: -> ([B,Q,k], [B,Q,k]).
     """
     if _on_card(queries):
         return distance_topk_cuda(queries, points, labels, valid, k=k,

@@ -70,19 +70,25 @@ def distance_topk(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused distance + top-k: [Q,D],[N,D],[N] -> ([Q,k], [Q,k]).
 
+    Batched, as ``jax.vmap`` of the reference gives it: [B,Q,D] queries,
+    [B,N,D] points, labels and ``valid`` [N] (shared) or [B,N] ->
+    ([B,Q,k], [B,Q,k]), each item scored by its own product, so that it
+    gives the bits of a 2-D call on that item.
     ``metric="dot"`` scores by the negated dot product, so the k smallest
     scores are the k most correlated points.  ``valid`` masks points out
     with BIG.  A selected score >= BIG/2 is a padding slot.
     """
-    if metric == "dot":
-        d = -(queries.float() @ points.float().T)
-    elif metric == "l2":
-        d = knn_distance(queries, points)
-    else:
+    if metric not in ("l2", "dot"):
         raise ValueError(f"metric {metric!r}: expected 'l2' or 'dot'")
+    score = (knn_distance if metric == "l2"
+             else lambda q, p: -(q.float() @ p.float().T))
+    if queries.dim() == 2:
+        d = score(queries, points)
+    else:
+        d = torch.stack([score(q, p) for q, p in zip(queries, points)])
     if valid is not None:
-        d = torch.where(valid[None, :], d, BIG)
-    lab = labels[None, :].to(torch.int32).expand(d.shape)
+        d = torch.where(valid[..., None, :], d, BIG)
+    lab = labels[..., None, :].to(torch.int32).expand(d.shape)
     return _smallest(d, lab, k)
 
 

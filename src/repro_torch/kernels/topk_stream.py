@@ -6,7 +6,7 @@ distance wins every merge).  ``merge_kbest`` is the plain statement of the
 tie rule the CUDA kernels implement in ``csrc/kbest.cuh``: the k smallest
 of [best | candidates] under (value, column), so the incumbent wins a tie,
 then the lowest column, as ``jax.lax.top_k`` does.  ``select_in_rounds``
-widens a selection kernel's k past ``MAX_K``.
+widens the k of ``distance_topk``'s wide regime past ``MAX_K``.
 """
 from __future__ import annotations
 
@@ -14,7 +14,7 @@ import torch
 import torch.nn.functional as F
 
 BIG = 3.0e38
-MAX_K = 32  # the largest k the CUDA selection kernels keep in registers
+MAX_K = 32  # the largest k of candidate_topk and distance_topk's wide regime
 
 
 def merge_kbest(

@@ -54,22 +54,20 @@ def select_buckets(
 
     qg [B,Hkv,G,dk]; mean_k [B,K,Hkv,dk]; counts [B,K].  The pooled query
     sums over the group heads, so a bucket's score is its total centroid
-    logit mass sum_{hkv,g} q . mean_k.  One call per sequence, as the JAX
-    package vmaps it; ties go to the lowest index.  Returns (top_idx [B,R]
-    int32, use [B,R] bool); ``use`` is False on padding slots (fewer than R
-    non-empty buckets), whose index is not to be trusted.
+    logit mass sum_{hkv,g} q . mean_k.  One batched call for the B
+    sequences (the JAX package vmaps one call per sequence); ties go to the
+    lowest index.  Returns (top_idx [B,R] int32, use [B,R] bool); ``use`` is
+    False on padding slots (fewer than R non-empty buckets), whose index is
+    not to be trusted.
     """
     b, hkv, _, dk = qg.shape
     kb = mean_k.shape[1]
-    q_pool = qg.float().sum(dim=2).reshape(b, hkv * dk)
+    q_pool = qg.float().sum(dim=2).reshape(b, 1, hkv * dk)
     cents = mean_k.float().reshape(b, kb, hkv * dk)
     labels = torch.arange(kb, dtype=torch.int32, device=qg.device)
-    nonempty = counts > 0
-    scores, idx = zip(*(
-        kernel_ops.distance_topk(q_pool[i:i + 1], cents[i], labels,
-                                 nonempty[i], k=n_refine, metric="dot")
-        for i in range(b)))
-    return torch.cat(idx).to(torch.int32), torch.cat(scores) < BIG / 2
+    scores, idx = kernel_ops.distance_topk(q_pool, cents, labels, counts > 0,
+                                           k=n_refine, metric="dot")
+    return idx[:, 0], scores[:, 0] < BIG / 2
 
 
 def _bucket_mask(top_idx: torch.Tensor, use: torch.Tensor,

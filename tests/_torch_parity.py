@@ -44,6 +44,39 @@ def topk_inputs(seed, q, n, d, valid_frac, n_labels=11):
             r.random(n) < valid_frac)
 
 
+def batched_inputs(seed, b, q, n, d, valid_frac, *, ties=False,
+                   per_item_labels=False):
+    """[B,Q,D] queries, [B,N,D] points, labels ([N] or [B,N]) and a [B,N]
+    mask.  With ``ties`` the points are small integers and the second half
+    repeats the first, so scores tie exactly."""
+    r = rng(seed)
+    if ties:
+        ps = r.integers(-2, 3, (b, n, d)).astype(np.float32)
+        ps[:, n // 2:] = ps[:, :n - n // 2]
+        qs = r.integers(-2, 3, (b, q, d)).astype(np.float32)
+    else:
+        qs, ps = normal(r, b, q, d), normal(r, b, n, d)
+    shape = (b, n) if per_item_labels else (n,)
+    labels = r.integers(0, 1000, shape).astype(np.int32)
+    return qs, ps, labels, r.random((b, n)) < valid_frac
+
+
+# (B, Q, N, D, k, metric, valid_frac, ties, per-item labels) of the batched
+# distance_topk tests, on the CPU and on the card
+BATCHED_TOPK_CASES = [
+    # the LM selection: B sequences, one pooled query, K = 64 buckets of
+    # D = 1024, k at rf 0.05, 0.25 and 1.0, some buckets empty
+    (4, 1, 64, 1024, 4, "dot", 0.8, False, False),
+    (4, 1, 64, 1024, 16, "dot", 0.8, False, False),
+    (4, 1, 64, 1024, 64, "dot", 0.8, False, False),
+    (1, 1, 64, 1024, 64, "dot", 0.9, False, False),   # a prefill token
+    (3, 2, 10, 8, 14, "dot", 0.7, False, True),       # k > N: padding
+    (2, 1, 20, 16, 5, "dot", 0.0, False, False),      # every point masked
+    (2, 3, 30, 4, 12, "l2", 1.0, True, False),        # exact ties
+    (3, 5, 40, 24, 6, "l2", 0.8, False, True),        # l2 at a small N
+]
+
+
 def candidates(seed, q, m, k, seeded):
     """[q, m] candidates (a tenth pre-masked to BIG) and, if ``seeded``, a
     sorted [q, k] seed, for candidate_topk."""

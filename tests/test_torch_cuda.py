@@ -15,14 +15,15 @@ import pytest
 torch = pytest.importorskip("torch")  # the port's tests need PyTorch
 
 from _torch_parity import (
-    assert_close, assert_topk_match, candidates, cf_inputs, normal, rng, th,
-    topk_inputs,
+    BATCHED_TOPK_CASES, assert_close, assert_topk_match, batched_inputs,
+    candidates, cf_inputs, normal, rng, th, topk_inputs,
 )
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.agg_refine import agg_refine_attention_cuda
 from repro_torch.kernels.aggregated_attention import aggregated_attention_cuda
 from repro_torch.kernels.cf_refine import cf_refine_cuda
-from repro_torch.kernels.distance_topk import distance_topk_cuda
+from repro_torch.kernels.distance_topk import SMALL_MAX_N, distance_topk_cuda
+from repro_torch.kernels.knn_distance import knn_distance_cuda
 from repro_torch.kernels.lsh_hash import lsh_hash_cuda
 from repro_torch.kernels.topk_stream import MAX_K
 
@@ -47,22 +48,106 @@ def _on(dev, *arrays):
     (1, 1, 1, 1, "l2", 1.0), (7, 3, 9, 5, "l2", 1.0),
     (130, 5000, 217, 6, "l2", 0.5), (64, 40, 12, 3, "l2", 0.0),
     (33, 777, 50, 17, "l2", 1.0), (33, 777, 50, 32, "dot", 0.8),
-    # wider than the kernel's k-best: rounds of MAX_K, a row at a time
+    # k > MAX_K within the batched regime's N: one launch
     (1, 64, 1024, 64, "dot", 0.9),       # rf 1.0 bucket selection, K = 64
     (3, 500, 40, 70, "l2", 0.5), (2, 50, 8, 80, "dot", 0.6),
+    # the wide regime, off the 128 x 128 tile grid
+    (129, 5000, 217, 5, "l2", 1.0), (127, 2875, 217, 6, "l2", 0.9),
+    (1, 1025, 1, 3, "dot", 1.0), (300, 20_000, 217, 5, "l2", 1.0),
+    # wider than the wide regime's k-best: rounds of MAX_K, a row at a time
+    (2, 3000, 16, 40, "l2", 0.7),
 ])
 def test_cuda_distance_topk(cuda, q, n, d, k, metric, valid_frac):
     qs, ps, labs, valid = _on(cuda, *topk_inputs(q + n + d, q, n, d,
                                                  valid_frac))
     before = distance_topk_cuda.launches
     got = ops.distance_topk(qs, ps, labs, valid, k=k, metric=metric)
-    rounds = 1 if k <= MAX_K else q * -(-k // MAX_K)
+    # one launch, except in the wide regime past MAX_K
+    rounds = (1 if n <= SMALL_MAX_N or k <= MAX_K
+              else q * -(-k // MAX_K))
     assert distance_topk_cuda.launches == before + rounds
     want = ref.distance_topk(qs, ps, labs, valid, k=k, metric=metric)
     next_d = ref.distance_topk(qs, ps, labs, valid, k=k + 1,
                                metric=metric)[0][:, k]
     assert_topk_match(*got, *want, next_d)
     assert (got[1].cpu().numpy()[got[0].cpu().numpy() >= 1.5e38] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k,metric", [(60, 7, "l2"), (60, 20, "dot"),
+                                        (3000, 7, "l2"), (3000, 20, "dot")])
+def test_cuda_distance_topk_ties_go_to_the_lowest_index(cuda, n, k, metric):
+    """Small-integer points, each three times: scores tie exactly and are
+    exact in fp32, so the kernel gives the plain version's bits, lowest
+    index first on ties, in both regimes (N = 60 and 3000)."""
+    r = rng(n + k)
+    base = r.integers(-2, 3, (n // 3, 6)).astype(np.float32)
+    qs, ps, labs = _on(cuda, r.integers(-2, 3, (9, 6)).astype(np.float32),
+                       np.concatenate([base, base, base]),
+                       np.arange(n, dtype=np.int32))
+    got = ops.distance_topk(qs, ps, labs, k=k, metric=metric)
+    want = ref.distance_topk(qs, ps, labs, k=k, metric=metric)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,q,n,d,k,metric,valid_frac,ties,per_item",
+                         BATCHED_TOPK_CASES)
+def test_cuda_batched_distance_topk(cuda, b, q, n, d, k, metric, valid_frac,
+                                    ties, per_item):
+    """The batched regime against the plain version: one launch for the B
+    items, k up to N and past it."""
+    qs, ps, labs, valid = _on(cuda, *batched_inputs(
+        b * 1000 + n + k, b, q, n, d, valid_frac, ties=ties,
+        per_item_labels=per_item))
+    before = distance_topk_cuda.launches
+    got_d, got_l = ops.distance_topk(qs, ps, labs, valid, k=k, metric=metric)
+    assert distance_topk_cuda.launches == before + 1
+    assert got_d.shape == got_l.shape == (b, q, k)
+    want_d, want_l = ref.distance_topk(qs, ps, labs, valid, k=k,
+                                       metric=metric)
+    next_d = ref.distance_topk(qs, ps, labs, valid, k=k + 1,
+                               metric=metric)[0][..., k]
+    flat = (lambda t: t.reshape(b * q, -1))
+    assert_topk_match(flat(got_d), flat(got_l), flat(want_d), flat(want_l),
+                      next_d.reshape(b * q))
+    pad = got_d.cpu().numpy() >= 1.5e38
+    assert (got_l.cpu().numpy()[pad] == 0).all()
+
+
+@pytest.mark.cuda
+def test_cuda_batched_distance_topk_wide_items(cuda):
+    """Batched items past the batched regime's N: the wide regime, one
+    launch an item."""
+    b, n = 2, SMALL_MAX_N + 500
+    qs, ps, labs, valid = _on(cuda, *batched_inputs(7, b, 3, n, 40, 0.8,
+                                                    per_item_labels=True))
+    before = distance_topk_cuda.launches
+    got_d, got_l = ops.distance_topk(qs, ps, labs, valid, k=5)
+    assert distance_topk_cuda.launches == before + b
+    want_d, want_l = ref.distance_topk(qs, ps, labs, valid, k=5)
+    next_d = ref.distance_topk(qs, ps, labs, valid, k=6)[0][..., 5]
+    assert_topk_match(got_d.reshape(b * 3, 5), got_l.reshape(b * 3, 5),
+                      want_d.reshape(b * 3, 5), want_l.reshape(b * 3, 5),
+                      next_d.reshape(b * 3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("regime", ["knn_distance", "wide", "batched"])
+def test_cuda_distance_kernels_give_the_same_bits_twice(cuda, regime):
+    """No atomics and a fixed order of every sum and merge: two runs on the
+    same inputs give the same bits."""
+    r = rng(11)
+    if regime == "batched":
+        args = _on(cuda, *batched_inputs(3, 4, 1, 64, 1024, 0.8))
+        run = (lambda: ops.distance_topk(*args, k=16, metric="dot"))
+    else:
+        qs, ps, labs, valid = _on(cuda, *topk_inputs(5, 300, 5000, 217, 0.9))
+        run = ((lambda: (ops.knn_distance(qs, ps),))
+               if regime == "knn_distance"
+               else (lambda: ops.distance_topk(qs, ps, labs, valid, k=6)))
+    for a, b in zip(run(), run()):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -77,11 +162,18 @@ def test_cuda_candidate_topk(cuda, q, m, k, seeded):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("q,n,d", [(1, 1, 1), (70, 130, 217), (3, 65, 1000)])
+@pytest.mark.parametrize("q,n,d", [
+    (1, 1, 1), (70, 130, 217), (3, 65, 1000),
+    # off the 128 x 64 tile grid
+    (1, 2875, 217), (127, 2875, 1024), (129, 5000, 1), (129, 1, 217),
+    (127, 5000, 217), (1024, 2875, 217),    # kNN stage 1
+])
 def test_cuda_knn_distance(cuda, q, n, d):
     r = rng(q + n + d)
     qs, ps = _on(cuda, normal(r, q, d), normal(r, n, d))
+    before = knn_distance_cuda.launches
     assert_close(ops.knn_distance(qs, ps), ref.knn_distance(qs, ps))
+    assert knn_distance_cuda.launches == before + 1
 
 
 @pytest.mark.cuda
