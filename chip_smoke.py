@@ -87,6 +87,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -542,10 +543,13 @@ def build_kernels(build):
     out_dir = build.build_all()
     print(f"build: {time.perf_counter() - t0:.1f} s into "
           f"{out_dir.relative_to(Path(__file__).resolve().parent)}")
-    for log in sorted(out_dir.glob("*.log")):
-        for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {log.stem}: {line.strip()}")
+    for log in sorted(out_dir.glob("*.log")):   # nvcc -Xptxas=-v, a source
+        text = log.read_text()
+        regs = [int(n) for n in re.findall(r"Used (\d+) registers", text)]
+        spill = sum(int(n) for n in
+                    re.findall(r"(\d+) bytes spill stores", text))
+        print(f"  {log.stem}: {len(regs)} kernels, {min(regs)}-{max(regs)} "
+              f"registers, {spill} bytes of spill stores")
 
 
 def _host_ms(torch, fn):
@@ -913,21 +917,40 @@ def cf_small_check(torch, cf, lsh, refine, ops, make_netflix_like,
     cpu = [t.cpu() for t in gpu]
     truth, tmask = r[:n_act], te[:n_act]
 
-    def close(name, got, want, ties=None):
+    def close(name, got, want, ties=None, again=None):
         """Every row within tolerance, or excused by a near-tie; returns
-        the number of rows excused."""
+        the number of rows excused.  On a failure, ``again`` (when given)
+        recomputes ``want``, and the message says whether it gave the same
+        bits, so that a fault of the host's side shows as such."""
         excused = 0
         for i, (g, w) in enumerate(zip(got, want)):
-            bad = ((g.cpu() - w).abs() > CF_TOL + CF_TOL * w.abs()).any(1)
+            err = (g.cpu() - w).abs()
+            ratio = (err / (CF_TOL + CF_TOL * w.abs())).amax(1)
+            bad = ratio > 1
             if ties is not None:
                 excused = max(excused, int((bad & ties).sum()))
                 bad &= ~ties
             if bool(bad.any()):
-                fail(f"small CF {name} output {i}: {int(bad.sum())} rows "
-                     "differ beyond tolerance")
+                rows = bad.nonzero().flatten().tolist()
+                redo = ""
+                if again is not None:
+                    same = all(torch.equal(x, y)
+                               for x, y in zip(again(), want))
+                    redo = ("; the CPU gives the same bits again" if same
+                            else "; the CPU gives other bits when run again")
+                fail(f"small CF {name} output {i}: {len(rows)} rows "
+                     f"differ beyond tolerance (rows {rows[:32]}, largest "
+                     f"error {float(err[bad].max()):.3e}, "
+                     f"{float(ratio.max()):.1f}x the tolerance{redo})")
         return excused
 
-    close("exact_map", cf.exact_map(*gpu), cf.exact_map(*cpu))
+    got = cf.exact_map(*gpu)
+    if not all(torch.equal(x, y) for x, y in zip(got, cf.exact_map(*gpu))):
+        fail("small CF exact_map: two runs on the card differ")
+    close("exact_map", got, cf.exact_map(*cpu),
+          again=lambda: cf.exact_map(*cpu))
+    print(f"small CF exact_map (cuda vs cpu): num/den within {CF_TOL} on "
+          "every row, the same bits on two runs on the card")
     pred_g = cf.run_exact(*gpu, n_shards=2, device="cuda")
     pred_w = cf.run_exact(*cpu, n_shards=2, device="cpu")
     err = abs(cf.rmse(pred_g, truth, tmask)

@@ -1,21 +1,46 @@
 // Shared pieces of the two decode-attention kernels (agg_refine.cu,
-// aggregated_attention.cu): one warp folds rows of keys and values into a
-// partial softmax (running max m, normaliser l, weighted value sum acc) for
-// the g query heads of one KV head, and a second kernel merges the partial
-// triples of a (sequence, KV head) in a fixed order.
+// aggregated_attention.cu).
 //
-// A chunk is up to 32 rows, one per lane.  Each lane takes the dot products
-// of its own row with the g queries (kept in shared memory) in 16-byte
-// loads, so no shuffle is spent on the q.k sums.  The chunk's max and sum
-// are warp reductions; then the warp walks the chunk's live rows four at a
-// time, lanes over the value dimensions, so the value loads are coalesced
-// and four rows' loads are in flight at once.  Rows that are not live are
-// never read.  Masked logits take the finite NEG = -1e30 of the reference
-// (src/repro/kernels/ref.py:261); a partial that saw no live row stays
-// (NEG, 0, 0) and merges to nothing, so an all-masked input gives exact
-// zeros and never a NaN.
+// Both are latency-bound: at the LM's shapes a (sequence, KV head) owns
+// tens of kilobytes of live rows, and what sets a launch's time is the
+// launch itself and the chain of dependent steps behind it.  So both run as
+// one launch, one thread-block cluster of kCluster blocks of kWarps warps
+// per (sequence, KV head), and the partial softmaxes meet on the chip:
+//
+// - Each warp of the cluster (unit = warp * kCluster + rank, so consecutive
+//   units land on different SMs) takes a fixed share of the rows: selection
+//   slots, or a span of tokens, or a span of centroids.  Its first indices
+//   are loaded (a lane each) while the block stages the queries and the
+//   sequence's bucket counts; the live rows' ids go to a list in shared
+//   memory, and a chunk of live K and V rows (as many as the wrapper's
+//   geometry gives, at most 32) is copied into the warp's shared memory
+//   with 16-byte cp.async, all issued before the first FMA, and folded
+//   into a running (m, l, acc) for the G query heads of the KV head.  Rows
+//   that are not live are never read.
+// - Each block merges its warps' partials in shared memory in warp order
+//   and scatters the result over the cluster: share j of the values goes to
+//   block rank j's shared memory (distributed shared memory), so after one
+//   cluster barrier every block merges its share over the ranks in rank
+//   order and writes that part of the output (rank 0 writes m and l).  A
+//   merge takes each head's largest m first, then one weight exp(m - max)
+//   per partial and head, and sums in a fixed order: no chain of
+//   exponentials per value, and the same bits on every run.
+//
+// Within a chunk of n rows, row i takes lane i and, when n <= 16, the lanes
+// i + R, i + 2R, ... as well (R: n rounded up to a power of two), which
+// split its dot products with the queries (staged in shared memory, zero
+// rows past g) and add them in a butterfly; the chunk's max and sum are
+// reductions over R lanes, all heads at once.  For the values the warp
+// splits into row groups of lpr lanes, each lane a 16-byte piece of a row,
+// and the groups' sums are added at the end.  Rows sit in shared memory at
+// an odd number of 16-byte pieces, so the lanes of a quarter warp that read
+// different rows hit different banks.  Masked logits take the finite NEG =
+// -1e30 of the reference (src/repro/kernels/ref.py:261); a partial that saw
+// no live row stays (NEG, 0, 0) and merges to nothing, so an all-masked
+// input gives exact zeros and never a NaN.
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -23,25 +48,39 @@
 
 namespace decode_attn {
 
+namespace cg = cooperative_groups;
+
 constexpr float kNeg = -1.0e30f;
-constexpr int kMaxG = 8;   // query heads per KV head
+constexpr int kMaxG = 8;          // query heads per KV head
+constexpr int kCluster = 8;       // blocks per (sequence, KV head)
+constexpr int kWarps = 4;         // warps per block
+constexpr int kThreads = 32 * kWarps;
+constexpr int kUnits = kCluster * kWarps;  // warps per (sequence, KV head)
+constexpr int kRows = 32;         // rows of a window: one per lane
 constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
-  return x;
+// Blocks an SM should hold, for the register limit: a kernel instantiated
+// for GM <= 4 query heads and one 16-byte piece of a value row a lane (P)
+// keeps 4 blocks (128 registers a thread), so the B Hkv clusters of a
+// decode batch are resident at once; wider ones take what they need.
+template <int GM, int P>
+constexpr int min_blocks() {
+  return GM <= 4 && P == 1 ? 4 : 1;
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
-  return x;
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
 }
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // 16 bytes of a row as floats.
@@ -76,110 +115,218 @@ struct Vec<__nv_bfloat16> {
   }
 };
 
-// out[gi] = q_s[gi, :] . row for gi < g; q_s is [g][dk] f32 in shared
-// memory, row holds dk values of T (dk a multiple of Vec<T>::kN, 16-byte
-// aligned).
+__host__ __device__ inline int align16(int bytes) {
+  return (bytes + 15) / 16 * 16;
+}
+
+// An odd number of 16-byte pieces per row in shared memory.
+__host__ __device__ inline int padded16(int n16) {
+  return n16 % 2 ? n16 : n16 + 1;
+}
+
+__host__ __device__ inline int lanes_per_row(int n16) {
+  int p = 1;
+  while (p < n16 && p < 32) p <<= 1;
+  return p;
+}
+
+// How K rows of dk and V rows of dv values of T sit in shared memory.
 template <typename T>
-__device__ __forceinline__ void row_dots(const T* __restrict__ row,
-                                         const float* q_s, int dk, int g,
-                                         float (&out)[kMaxG]) {
-#pragma unroll
-  for (int gi = 0; gi < kMaxG; ++gi) out[gi] = 0.f;
+struct Rows {
+  static constexpr int kN = Vec<T>::kN;
+  int n16k, n16v;  // 16-byte pieces of a K row, of a V row
+  int kst, vst;    // row strides in shared memory, in values
+  int lpr;         // lanes per V row (a power of two)
+  __host__ __device__ Rows(int dk, int dv)
+      : n16k(dk / kN),
+        n16v(dv / kN),
+        kst(padded16(dk / kN) * kN),
+        vst(padded16(dv / kN) * kN),
+        lpr(lanes_per_row(dv / kN)) {}
+  // shared memory of one row's K and V
+  __host__ __device__ int bytes() const {
+    return (kst + vst) * static_cast<int>(sizeof(T));
+  }
+};
+
+// Bytes of a partial triple of g heads, a slot: acc [g][dv] (16-byte
+// aligned), then m [g], then l [g], floats.
+__host__ __device__ inline int slot_bytes(int g, int dv) {
+  return align16(g * (dv + 2) * static_cast<int>(sizeof(float)));
+}
+
+// Bytes of the merge weights (a block's kWarps and the cluster's kCluster
+// per head) and of the cluster's l per head.
+__host__ __device__ inline int weight_bytes(int g) {
+  return align16((kWarps + kCluster + 1) * g * 4);
+}
+
+// Copy the g query rows [g][dk] (contiguous f32) into shared memory, by the
+// whole block, and commit the copies; rows g .. gm - 1 are zeros, so a
+// warp computes all gm heads without a branch per head.
+__device__ __forceinline__ void stage_queries(const float* __restrict__ q,
+                                              float* q_s, int g, int gm,
+                                              int dk) {
+  const int n = g * dk;
+  for (int i = threadIdx.x * 4; i < n; i += kThreads * 4) {
+    cp_async16(q_s + i, q + i);
+  }
+  cp_async_commit();
+  for (int i = n + threadIdx.x; i < gm * dk; i += kThreads) q_s[i] = 0.f;
+}
+
+// Issue the copies of a chunk's n rows into ks / vs: row i's id is rid_s[i]
+// (shared memory), its K row at kg + id * dk and its V row at vg + id * dv.
+// Row by row, the lanes over its 16-byte pieces; all of the chunk's copies
+// are in flight together, and the caller commits and waits.
+template <typename T>
+__device__ __forceinline__ void stage_rows(T* ks, T* vs, const Rows<T>& rs,
+                                           const T* __restrict__ kg,
+                                           const T* __restrict__ vg, int dk,
+                                           int dv, const long long* rid_s,
+                                           int n, int lane) {
+  constexpr int kN = Vec<T>::kN;
+  const int per = rs.n16k + rs.n16v;
 #pragma unroll 4
-  for (int d0 = 0; d0 < dk; d0 += Vec<T>::kN) {
-    float x[Vec<T>::kN];
-    Vec<T>::load(row + d0, x);
-#pragma unroll
-    for (int gi = 0; gi < kMaxG; ++gi) {
-      if (gi < g) {
-        const float* qr = q_s + gi * dk + d0;
-#pragma unroll
-        for (int e = 0; e < Vec<T>::kN; ++e) {
-          out[gi] = fmaf(qr[e], x[e], out[gi]);
-        }
+  for (int row = 0; row < n; ++row) {
+    const long long r = rid_s[row];
+    for (int pc = lane; pc < per; pc += 32) {
+      if (pc < rs.n16k) {
+        cp_async16(ks + row * rs.kst + pc * kN, kg + r * dk + pc * kN);
+      } else {
+        const int pv = pc - rs.n16k;
+        cp_async16(vs + row * rs.vst + pv * kN, vg + r * dv + pv * kN);
       }
     }
   }
 }
 
-// Copy the g query rows [g][dk] (contiguous f32) into shared memory.
-__device__ __forceinline__ void stage_queries(const float* __restrict__ q,
-                                              float* q_s, int n) {
-  for (int i = threadIdx.x; i < n; i += 32) q_s[i] = q[i];
-  __syncwarp();
-}
-
-// The online-softmax state of one warp for g query heads, the same on every
-// lane; acc[gi][j] holds value dimension lane + 32 j.
-template <int DVL>
+// The online-softmax state of one warp for GM query heads (q rows past g
+// are zeros, and their partials are never written): m and l the same on
+// every lane; acc[gi][pc * kN + e] holds value dimension
+// (lir + pc * lpr) * kN + e of the lane's row group (lir = lane % lpr),
+// summed over the groups by store().
+template <typename T, int P, int GM>
 struct Partial {
-  float m[kMaxG];
-  float l[kMaxG];
-  float acc[kMaxG][DVL];
+  static constexpr int kN = Vec<T>::kN;
+  float m[GM];
+  float l[GM];
+  float acc[GM][P * kN];
 
   __device__ __forceinline__ void init() {
 #pragma unroll
-    for (int gi = 0; gi < kMaxG; ++gi) {
+    for (int gi = 0; gi < GM; ++gi) {
       m[gi] = kNeg;
       l[gi] = 0.f;
 #pragma unroll
-      for (int j = 0; j < DVL; ++j) acc[gi][j] = 0.f;
+      for (int j = 0; j < P * kN; ++j) acc[gi][j] = 0.f;
     }
   }
 
-  // Fold in one chunk: lane i holds row i's logits (scaled, biased) and
-  // whether it is live; row i's values start at vals0 + i * vstride.
-  template <typename V>
-  __device__ __forceinline__ void absorb(bool live,
-                                         const float (&logit)[kMaxG], int g,
-                                         const V* __restrict__ vals0,
-                                         size_t vstride, int dv, int lane) {
-    const unsigned live_mask = __ballot_sync(kFull, live);
-    if (live_mask == 0) return;
-    float p[kMaxG];
+  // Fold in a staged chunk of 1 <= n <= 32 live rows (ks, vs); row i's
+  // scaled logits get bias_s[i] added (no bias when bias_s is null).  The
+  // rows take the first R lanes (R: n rounded up to a power of two) and the
+  // 32 / R lane groups split each row's dot products, added in a butterfly,
+  // so every lane of a row holds the same logits.
+  __device__ __forceinline__ void absorb(const T* ks, const T* vs,
+                                         const Rows<T>& rs, int n,
+                                         const float* bias_s,
+                                         const float* q_s, int dk,
+                                         float scale, int lane) {
+    int big = 1;
+    while (big < n) big <<= 1;
+    const int row = lane & (big - 1);
+    const bool live = row < n;
+    float logit[GM];
 #pragma unroll
-    for (int gi = 0; gi < kMaxG; ++gi) {
-      p[gi] = 0.f;
-      if (gi < g) {
-        const float x = live ? logit[gi] : kNeg;
-        const float mn = fmaxf(m[gi], warp_max(x));
-        const float alpha = expf(m[gi] - mn);
-        p[gi] = live ? expf(x - mn) : 0.f;
-        l[gi] = l[gi] * alpha + warp_sum(p[gi]);
+    for (int gi = 0; gi < GM; ++gi) logit[gi] = 0.f;
+    if (live) {
+      const T* kr = ks + row * rs.kst;
+#pragma unroll 2
+      for (int pc = lane / big; pc < rs.n16k; pc += 32 / big) {
+        float x[kN];
+        Vec<T>::load(kr + pc * kN, x);
 #pragma unroll
-        for (int j = 0; j < DVL; ++j) acc[gi][j] *= alpha;
-        m[gi] = mn;
-      }
-    }
-    unsigned rest = live_mask;
-    while (rest != 0) {
-      int src[4];
+        for (int gi = 0; gi < GM; ++gi) {
+          const float* qr = q_s + gi * dk + pc * kN;
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        src[u] = rest != 0 ? __ffs(rest) - 1 : -1;
-        rest &= rest - 1;
-      }
-      float v[4][DVL];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-#pragma unroll
-        for (int j = 0; j < DVL; ++j) {
-          const int d = lane + 32 * j;
-          v[u][j] = (src[u] >= 0 && d < dv)
-                        ? to_float(vals0[src[u] * vstride + d])
-                        : 0.f;
+          for (int e = 0; e < kN; e += 4) {
+            const float4 qv = *reinterpret_cast<const float4*>(qr + e);
+            logit[gi] = fmaf(qv.x, x[e], logit[gi]);
+            logit[gi] = fmaf(qv.y, x[e + 1], logit[gi]);
+            logit[gi] = fmaf(qv.z, x[e + 2], logit[gi]);
+            logit[gi] = fmaf(qv.w, x[e + 3], logit[gi]);
+          }
         }
       }
+    }
+    for (int off = big; off < 32; off <<= 1) {
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        if (src[u] < 0) break;
+      for (int gi = 0; gi < GM; ++gi) {
+        logit[gi] += __shfl_xor_sync(kFull, logit[gi], off);
+      }
+    }
+    // the chunk's max and sum over the rows' lanes, every head at once
+    const float bias = live && bias_s != nullptr ? bias_s[row] : 0.f;
+    float cm[GM];
 #pragma unroll
-        for (int gi = 0; gi < kMaxG; ++gi) {
-          if (gi < g) {
-            const float w = __shfl_sync(kFull, p[gi], src[u]);
+    for (int gi = 0; gi < GM; ++gi) {
+      logit[gi] = live ? logit[gi] * scale + bias : kNeg;
+      cm[gi] = logit[gi];
+    }
+    for (int o = big >> 1; o > 0; o >>= 1) {
 #pragma unroll
-            for (int j = 0; j < DVL; ++j) {
-              acc[gi][j] = fmaf(w, v[u][j], acc[gi][j]);
+      for (int gi = 0; gi < GM; ++gi) {
+        cm[gi] = fmaxf(cm[gi], __shfl_xor_sync(kFull, cm[gi], o));
+      }
+    }
+    float p[GM];
+    float sum[GM];
+#pragma unroll
+    for (int gi = 0; gi < GM; ++gi) {
+      const float mn = fmaxf(m[gi], cm[gi]);
+      cm[gi] = expf(m[gi] - mn);  // the old partial's rescale
+      p[gi] = live ? expf(logit[gi] - mn) : 0.f;
+      sum[gi] = p[gi];
+      m[gi] = mn;
+    }
+    for (int o = big >> 1; o > 0; o >>= 1) {
+#pragma unroll
+      for (int gi = 0; gi < GM; ++gi) {
+        sum[gi] += __shfl_xor_sync(kFull, sum[gi], o);
+      }
+    }
+#pragma unroll
+    for (int gi = 0; gi < GM; ++gi) {
+      l[gi] = l[gi] * cm[gi] + sum[gi];
+#pragma unroll
+      for (int j = 0; j < P * kN; ++j) acc[gi][j] *= cm[gi];
+    }
+    const int grp = lane / rs.lpr;
+    const int lir = lane - grp * rs.lpr;
+    const int n_grp = 32 / rs.lpr;
+    for (int j0 = 0; j0 < n; j0 += n_grp) {
+      const int j = j0 + grp;
+      const bool ok = j < n;
+      float w[GM];
+#pragma unroll
+      for (int gi = 0; gi < GM; ++gi) {
+        w[gi] = __shfl_sync(kFull, p[gi], ok ? j : 0);
+      }
+      if (ok) {
+        const T* vrow = vs + j * rs.vst;
+#pragma unroll
+        for (int pc = 0; pc < P; ++pc) {
+          const int piece = lir + pc * rs.lpr;
+          if (piece < rs.n16v) {
+            float v[kN];
+            Vec<T>::load(vrow + piece * kN, v);
+#pragma unroll
+            for (int gi = 0; gi < GM; ++gi) {
+#pragma unroll
+              for (int e = 0; e < kN; ++e) {
+                acc[gi][pc * kN + e] = fmaf(w[gi], v[e], acc[gi][pc * kN + e]);
+              }
             }
           }
         }
@@ -187,92 +334,195 @@ struct Partial {
     }
   }
 
-  // Write the triple of head gi < g to m_out[base + gi], l_out[base + gi],
-  // acc_out[(base + gi) * dv + d].
-  __device__ __forceinline__ void store(float* m_out, float* l_out,
-                                        float* acc_out, size_t base, int g,
-                                        int dv, int lane) const {
+  // Add up the row groups and write the triple of heads gi < g to slot.
+  __device__ __forceinline__ void store(float* slot, const Rows<T>& rs,
+                                        int g, int dv, int lane) {
+    for (int off = rs.lpr; off < 32; off <<= 1) {
 #pragma unroll
-    for (int gi = 0; gi < kMaxG; ++gi) {
-      if (gi < g) {
-        if (lane == 0) {
-          m_out[base + gi] = m[gi];
-          l_out[base + gi] = l[gi];
+      for (int gi = 0; gi < GM; ++gi) {
+#pragma unroll
+        for (int j = 0; j < P * kN; ++j) {
+          acc[gi][j] += __shfl_xor_sync(kFull, acc[gi][j], off);
         }
+      }
+    }
+    if (lane < rs.lpr) {
 #pragma unroll
-        for (int j = 0; j < DVL; ++j) {
-          const int d = lane + 32 * j;
-          if (d < dv) acc_out[(base + gi) * dv + d] = acc[gi][j];
+      for (int pc = 0; pc < P; ++pc) {
+        const int piece = lane + pc * rs.lpr;
+        if (piece < rs.n16v) {
+#pragma unroll
+          for (int gi = 0; gi < GM; ++gi) {
+            if (gi < g) {
+#pragma unroll
+              for (int e = 0; e < kN; e += 4) {
+                *reinterpret_cast<float4*>(slot + gi * dv + piece * kN + e) =
+                    make_float4(acc[gi][pc * kN + e], acc[gi][pc * kN + e + 1],
+                                acc[gi][pc * kN + e + 2],
+                                acc[gi][pc * kN + e + 3]);
+              }
+            }
+          }
+        }
+      }
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int gi = 0; gi < GM; ++gi) {
+        if (gi < g) {
+          slot[g * dv + gi] = m[gi];
+          slot[g * dv + g + gi] = l[gi];
         }
       }
     }
   }
 };
 
-// One warp per (sequence, KV head, query head) = blockIdx.x (query head
-// fastest): merge its n_parts partial triples ([n_parts][g] of a (sequence,
-// KV head); acc [n_parts][g][dv]) in part order, four parts' loads in
-// flight at a time.  normalize: write acc / max(l, 1e-30) to out_acc
-// [g][dv]; otherwise write the merged triple to out_m, out_l [g] and
-// out_acc [g][dv].
-template <int DVL>
-__global__ void __launch_bounds__(32)
-merge_parts_kernel(const float* __restrict__ part_m,
-                   const float* __restrict__ part_l,
-                   const float* __restrict__ part_acc, int n_parts, int g,
-                   int dv, bool normalize, float* __restrict__ out_m,
-                   float* __restrict__ out_l, float* __restrict__ out_acc) {
-  const int bh = blockIdx.x / g;
-  const int gi = blockIdx.x % g;
-  const int lane = threadIdx.x;
-  float m = kNeg;
-  float l = 0.f;
-  float acc[DVL];
+__device__ __forceinline__ void fma4(float4& a, const float4 x, float w) {
+  a.x = fmaf(x.x, w, a.x);
+  a.y = fmaf(x.y, w, a.y);
+  a.z = fmaf(x.z, w, a.z);
+  a.w = fmaf(x.w, w, a.w);
+}
+
+// The cluster barrier in two halves: every thread arrives once it starts
+// (cluster_arrive) and waits (cluster_wait) before its block first writes
+// to another block's shared memory, by which time all have started.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// A block's share of the cluster merge: share4 float4 groups of the g x dv
+// values (the last share may be short), so each block merges and writes
+// one kCluster-th of the output.
+__host__ __device__ inline int share4(int g, int dv) {
+  return (g * dv / 4 + kCluster - 1) / kCluster;
+}
+
+// Floats a rank's partial takes in a block's gather area: its share of
+// acc, then m [g] and l [g] (16-byte aligned).
+__host__ __device__ inline int slice_floats(int g, int dv) {
+  return (share4(g, dv) * 4 + 2 * g + 3) / 4 * 4;
+}
+
+// Bytes of a block's gather area: one slice from every rank.
+__host__ __device__ inline int gather_bytes(int g, int dv) {
+  return kCluster * slice_floats(g, dv) * 4;
+}
+
+// Merge the block's warps' partials (warp w's slot at slot0 + w * stride
+// floats) and scatter the result over the cluster: each head's largest m
+// over the warps, one weight exp(m_w - max) per warp and head (kept in
+// wts), the sums in warp order four values a thread at a time; share j of
+// the values, with every head's m and l, goes to block rank j's gather
+// area (distributed shared memory) at slice `rank`.  The caller's cluster
+// barrier then completes every block's gather area.
+__device__ __forceinline__ void merge_block(cg::cluster_group& cluster,
+                                            int rank, const float* slot0,
+                                            int stride, float* gather,
+                                            float* wts, int g, int dv) {
+  const int n = g * dv;
+  const int sh = share4(g, dv);
+  const int sf = slice_floats(g, dv);
+  for (int gi = threadIdx.x; gi < g; gi += kThreads) {
+    float ms[kWarps];
+    float mx = kNeg;
 #pragma unroll
-  for (int j = 0; j < DVL; ++j) acc[j] = 0.f;
-  for (int p0 = 0; p0 < n_parts; p0 += 4) {
-    float pm[4], pl[4], pa[4][DVL];
+    for (int w = 0; w < kWarps; ++w) {
+      ms[w] = slot0[w * stride + n + gi];
+      mx = fmaxf(mx, ms[w]);
+    }
+    float l = 0.f;
 #pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const bool in = p0 + u < n_parts;
-      const size_t idx =
-          (static_cast<size_t>(bh) * n_parts + p0 + u) * g + gi;
-      pm[u] = in ? part_m[idx] : kNeg;   // (NEG, 0, 0) merges to nothing
-      pl[u] = in ? part_l[idx] : 0.f;
-#pragma unroll
-      for (int j = 0; j < DVL; ++j) {
-        const int d = lane + 32 * j;
-        pa[u][j] = (in && d < dv) ? part_acc[idx * dv + d] : 0.f;
-      }
+    for (int w = 0; w < kWarps; ++w) {
+      const float x = expf(ms[w] - mx);
+      wts[w * g + gi] = x;
+      l = fmaf(slot0[w * stride + n + g + gi], x, l);
     }
 #pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const float mn = fmaxf(m, pm[u]);
-      const float a = expf(m - mn);
-      const float b = expf(pm[u] - mn);
-      l = l * a + pl[u] * b;
-#pragma unroll
-      for (int j = 0; j < DVL; ++j) acc[j] = acc[j] * a + pa[u][j] * b;
-      m = mn;
+    for (int j = 0; j < kCluster; ++j) {
+      float* dst = cluster.map_shared_rank(gather, j) + rank * sf + sh * 4;
+      dst[gi] = mx;
+      dst[g + gi] = l;
     }
   }
-  const size_t o = static_cast<size_t>(bh) * g + gi;
-  if (!normalize && lane == 0) {
-    out_m[o] = m;
-    out_l[o] = l;
-  }
-  const float den = normalize ? fmaxf(l, 1e-30f) : 1.f;
+  __syncthreads();
+  for (int e4 = threadIdx.x; e4 < n / 4; e4 += kThreads) {
+    const int gi = e4 * 4 / dv;
+    const float4* s0 = reinterpret_cast<const float4*>(slot0) + e4;
+    float4 x[kWarps];
 #pragma unroll
-  for (int j = 0; j < DVL; ++j) {
-    const int d = lane + 32 * j;
-    if (d < dv) out_acc[o * dv + d] = normalize ? acc[j] / den : acc[j];
+    for (int w = 0; w < kWarps; ++w) x[w] = s0[w * (stride / 4)];
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) fma4(a, x[w], wts[w * g + gi]);
+    const int j = e4 / sh;
+    float* dst = cluster.map_shared_rank(gather, j) + rank * sf;
+    reinterpret_cast<float4*>(dst)[e4 - j * sh] = a;
   }
 }
 
-// The number of value dimensions a lane holds: 1, 2, 4 or 8 (dv <= 256).
-inline int dv_per_lane(int dv) {
-  const int n = (dv + 31) / 32;
-  return n <= 1 ? 1 : n <= 2 ? 2 : n <= 4 ? 4 : 8;
+// After the cluster barrier that completes the gather area: merge this
+// block's share of the values over the ranks, in rank order.  Each head's
+// largest m over the ranks, one weight exp(m_r - max) per rank and head
+// (kept in wts; the heads' l in lsum); block rank 0 calls emit(gi, m, l)
+// once per head.  emit4(e4, a, l) is called once per four values
+// e4 * 4 .. e4 * 4 + 3 of acc [g][dv] in this block's share, with their
+// head's l.  A share takes at most one value group a thread
+// (g dv <= 32 kThreads).
+template <typename Emit, typename Emit4>
+__device__ __forceinline__ void merge_cluster(int rank, const float* gather,
+                                              float* wts, float* lsum, int g,
+                                              int dv, Emit emit,
+                                              Emit4 emit4) {
+  const int sh = share4(g, dv);
+  const int sf = slice_floats(g, dv);
+  const int gi = threadIdx.x;
+  if (gi < g) {
+    float mx = kNeg;
+#pragma unroll
+    for (int r = 0; r < kCluster; ++r) {
+      mx = fmaxf(mx, gather[r * sf + sh * 4 + gi]);
+    }
+    float l = 0.f;
+#pragma unroll
+    for (int r = 0; r < kCluster; ++r) {
+      const float w = expf(gather[r * sf + sh * 4 + gi] - mx);
+      wts[r * g + gi] = w;
+      l = fmaf(gather[r * sf + sh * 4 + g + gi], w, l);
+    }
+    lsum[gi] = l;
+    if (rank == 0) emit(gi, mx, l);
+  }
+  __syncthreads();
+  const int t = threadIdx.x;
+  const int e4 = rank * sh + t;
+  if (t < sh && e4 < g * dv / 4) {
+    const int h = e4 * 4 / dv;
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int r = 0; r < kCluster; ++r) {
+      fma4(a, reinterpret_cast<const float4*>(gather + r * sf)[t],
+           wts[r * g + h]);
+    }
+    emit4(e4, a, lsum[h]);
+  }
+}
+
+// Set a kernel's dynamic shared memory limit to `bytes` when it is above
+// the limit already set (once per kernel and size).
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes, size_t& set) {
+  if (bytes <= set) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err == cudaSuccess) set = bytes;
+  return err;
 }
 
 }  // namespace decode_attn

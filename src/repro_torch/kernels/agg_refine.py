@@ -1,7 +1,9 @@
 """Wrapper of the CUDA kernel ``csrc/agg_refine.cu``.
 
 Exact re-attention over the selected buckets of a bucket-major KV cache, as
-a partial-softmax triple; replaces
+a partial-softmax triple, in one launch (a thread-block cluster per
+(sequence, KV head), the partials merged on the chip; the launch geometry is
+``decode_geometry``); replaces
 ``src/repro/kernels/agg_refine.py:agg_refine_attention_pallas``.  The plain
 version is ``ref.agg_refine_attention``.
 """
@@ -11,12 +13,13 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, decode_geometry
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGS = [_P] * 6 + [_I] * 9 + [_F] + [_P] * 7
+_ARGS = [_P] * 6 + [_I] * 10 + [_F] + [_P] * 4
 MAX_GROUP = 8     # query heads per KV head (decode_attn.cuh kMaxG)
-MAX_DV = 256      # value width: 8 values a lane
+MAX_DV = 256      # value width: at most two 16-byte pieces a lane
+MAX_BUCKETS = 8192   # a sequence's bucket counts sit in shared memory
 CACHE_DTYPES = (torch.bfloat16, torch.float32)
 
 
@@ -30,9 +33,18 @@ def check_heads(group: int, dk: int, dv: int, dtype: torch.dtype) -> None:
     if not 1 <= dv <= MAX_DV:
         raise ValueError(f"value width {dv}: the kernel takes 1 to {MAX_DV}")
     vec = 128 // torch.finfo(dtype).bits
-    if dk % vec or dk % 4:
+    if dk % vec:
         raise ValueError(f"key width {dk}: must be a multiple of {vec} for "
                          f"{dtype} (16-byte loads)")
+    if dv % vec:
+        raise ValueError(f"value width {dv}: must be a multiple of {vec} "
+                         f"for {dtype} (16-byte loads)")
+
+
+def check_buckets(kb: int) -> None:
+    """Raise unless the decode-attention kernels take ``kb`` buckets."""
+    if not 1 <= kb <= MAX_BUCKETS:
+        raise ValueError(f"{kb} buckets: the kernel takes 1 to {MAX_BUCKETS}")
 
 
 def check_aligned(**tensors: torch.Tensor) -> None:
@@ -61,6 +73,7 @@ def agg_refine_attention_cuda(
     _build.expect(v_slots, "v_slots", dtype, (b, kb, cap, hkv, None), dev)
     dv = v_slots.shape[-1]
     check_heads(g, dk, dv, dtype)
+    check_buckets(kb)
     _build.expect(counts, "counts", torch.int32, (b, kb), dev)
     _build.expect(top_idx, "top_idx", torch.int32, (b, None), dev)
     r = top_idx.shape[1]
@@ -69,9 +82,6 @@ def agg_refine_attention_cuda(
     _build.expect(use, "use", torch.bool, (b, r), dev)
     check_aligned(q=q, k_slots=k_slots, v_slots=v_slots)
     f32 = dict(dtype=torch.float32, device=dev)
-    part_m = torch.empty((b, hkv, r, g), **f32)
-    part_l = torch.empty((b, hkv, r, g), **f32)
-    part_acc = torch.empty((b, hkv, r, g, dv), **f32)
     out_m = torch.empty((b, hkv, g), **f32)
     out_l = torch.empty((b, hkv, g), **f32)
     out_acc = torch.empty((b, hkv, g, dv), **f32)
@@ -82,8 +92,9 @@ def agg_refine_attention_cuda(
         err = fn(q.data_ptr(), k_slots.data_ptr(), v_slots.data_ptr(),
                  counts.data_ptr(), top_idx.data_ptr(), use.data_ptr(),
                  int(dtype == torch.bfloat16), b, kb, cap, hkv, g, dk, dv, r,
-                 float(scale), part_m.data_ptr(), part_l.data_ptr(),
-                 part_acc.data_ptr(), out_m.data_ptr(), out_l.data_ptr(),
+                 decode_geometry.refine_rows(r, cap, dk, dv,
+                                             k_slots.element_size()),
+                 float(scale), out_m.data_ptr(), out_l.data_ptr(),
                  out_acc.data_ptr(), _build.stream_of(q))
     _build.check("agg_refine", err)
     agg_refine_attention_cuda.launches += 1

@@ -1,7 +1,9 @@
 """Wrapper of the CUDA kernel ``csrc/aggregated_attention.cu``.
 
 Two-stage aggregated decode attention over a flat KV cache, for a whole
-decode batch in one launch; replaces
+decode batch in one launch (a thread-block cluster per (sequence, KV head),
+the written tokens split among its warps on the card, the partials merged on
+the chip; the launch geometry is ``decode_geometry``); replaces
 ``src/repro/kernels/aggregated_attention.py:aggregated_attention_pallas``
 (its two ``masked_decode_attention`` passes and ``merge_partials``), which
 the JAX package vmaps over the batch.  The plain version is
@@ -10,26 +12,16 @@ the JAX package vmaps over the batch.  The plain version is
 from __future__ import annotations
 
 import ctypes
-import math
 
 import torch
 
-from repro_torch.kernels import _build
-from repro_torch.kernels.agg_refine import check_aligned, check_heads
+from repro_torch.kernels import _build, decode_geometry
+from repro_torch.kernels.agg_refine import (
+    check_aligned, check_buckets, check_heads,
+)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGS = [_P] * 9 + [_I] * 10 + [_F] + [_P] * 5
-_WARP = 32
-_BLOCKS_PER_SM = 8   # token parts: several one-warp blocks on every SM
-
-
-def token_chunking(b: int, hkv: int, s: int, n_sms: int) -> tuple[int, int]:
-    """(chunk, n_tok_parts): runs of ``chunk`` tokens (a multiple of 32), so
-    that the (part, KV head, sequence) grid gives every SM several blocks."""
-    rows = math.ceil(s / _WARP)
-    want = max(1, math.ceil(_BLOCKS_PER_SM * n_sms / max(1, b * hkv)))
-    chunk = math.ceil(rows / min(rows, want)) * _WARP
-    return chunk, max(1, math.ceil(s / chunk))
+_ARGS = [_P] * 9 + [_I] * 10 + [_F] + [_P] * 2
 
 
 def aggregated_attention_cuda(
@@ -58,6 +50,7 @@ def aggregated_attention_cuda(
     _build.expect(bucket_of, "bucket_of", torch.int32, (b, s), dev)
     _build.expect(mean_k, "mean_k", torch.float32, (b, None, hkv, dk), dev)
     kb = mean_k.shape[1]
+    check_buckets(kb)
     _build.expect(mean_v, "mean_v", torch.float32, (b, kb, hkv, dv), dev)
     _build.expect(counts, "counts", torch.int32, (b, kb), dev)
     _build.expect(refined, "refined", torch.bool, (b, kb), dev)
@@ -67,20 +60,16 @@ def aggregated_attention_cuda(
     out = torch.empty((b, hq, dv), dtype=torch.float32, device=dev)
     if b == 0:
         return out
-    n_sms = _build.sm_count(dev)
-    chunk, n_parts = token_chunking(b, hkv, s, n_sms)
-    f32 = dict(dtype=torch.float32, device=dev)
-    part_m = torch.empty((b, hkv, n_parts + 1, g), **f32)
-    part_l = torch.empty((b, hkv, n_parts + 1, g), **f32)
-    part_acc = torch.empty((b, hkv, n_parts + 1, g, dv), **f32)
+    tok_rows, cen_rows = decode_geometry.flat_rows(s, kb, dk, dv,
+                                                   k_cache.element_size())
     fn = _build.entry("aggregated_attention", "aggregated_attention", _ARGS)
     with _build.on_device(dev):
         err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                  bucket_of.data_ptr(), mean_k.data_ptr(), mean_v.data_ptr(),
                  counts.data_ptr(), refined.data_ptr(), valid_len.data_ptr(),
-                 int(dtype == torch.bfloat16), b, s, kb, hkv, g, dk, dv, chunk,
-                 n_parts, float(scale), part_m.data_ptr(), part_l.data_ptr(),
-                 part_acc.data_ptr(), out.data_ptr(), _build.stream_of(q))
+                 int(dtype == torch.bfloat16), b, s, kb, hkv, g, dk, dv,
+                 tok_rows, cen_rows, float(scale), out.data_ptr(),
+                 _build.stream_of(q))
     _build.check("aggregated_attention", err)
     aggregated_attention_cuda.launches += 1
     return out

@@ -2,7 +2,7 @@
 """Where the time goes in the PyTorch port's aggregated-KV LM decode, on one
 NVIDIA GPU.
 
-    python3 tools/torch_lm_profile.py [--out results/lm.json]
+    python3 tools/torch_lm_profile.py [--out results/lm.json] [--src DIR]
 
 Builds ``chip_smoke.py``'s LM configuration (qwen3-8b at full width and
 depth, bf16, random weights from seed 0; ``DecodeEngine`` with 4 slots,
@@ -20,9 +20,12 @@ refine_frac of the sweep (0, 0.05, 0.25, 1.0):
   ``agg_refine_attention`` or ``aggregated_attention``);
 
 and one batch-1 prefill token (``serve_step`` at refine_frac 1.0, on the
-first prompt's caches at the position after it) profiled the same way.  Prints one JSON line with the results and the card's name
-and power limit, and writes it to ``--out`` when given.  Exits non-zero
-when there is no CUDA device.  Imports nothing of JAX.
+first prompt's caches at the position after it) profiled the same way.
+``--src`` is the ``src`` directory whose ``repro_torch`` is imported (the
+repository's own by default), so that two trees can be compared in one call.
+Prints one JSON line with the results and the card's name and power limit,
+and writes it to ``--out`` when given.  Exits non-zero when there is no
+CUDA device.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -35,12 +38,11 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-# The device kernels of each wrapper, by name: the decode-attention
-# wrappers launch a part kernel and the merge kernel they share.
+# The device kernels of each wrapper, by name (each launches one).
 KERNEL_NAMES = {
     "distance_topk": ("distance_topk",),
-    "agg_refine_attention": ("agg_refine_part", "merge_parts"),
-    "aggregated_attention": ("aggregated_attention_part", "merge_parts"),
+    "agg_refine_attention": ("agg_refine",),
+    "aggregated_attention": ("aggregated_attention",),
 }
 
 
@@ -68,6 +70,11 @@ def profiled(torch, fn, ported) -> dict:
             p: sum(ms for name, ms in ops
                    if any(k in name for k in KERNEL_NAMES[p]))
             for p in ported},
+        # every device kernel a wrapper's names match: one each
+        "path_kernel_names": {
+            p: sorted({name[:80] for name, _ in ops
+                       if any(k in name for k in KERNEL_NAMES[p])})
+            for p in ported},
         "top_ops_device_ms": [[name[:80], ms] for name, ms in ops[:10]],
     }
 
@@ -75,13 +82,14 @@ def profiled(torch, fn, ported) -> dict:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", type=Path, default=None)
+    parser.add_argument("--src", type=Path, default=ROOT / "src")
     args = parser.parse_args()
     import torch
 
     if not torch.cuda.is_available():
         print("torch_lm_profile: no CUDA device", file=sys.stderr)
         return 2
-    sys.path[:0] = [str(ROOT / "src"), str(ROOT), str(ROOT / "tools")]
+    sys.path[:0] = [str(args.src.resolve()), str(ROOT), str(ROOT / "tools")]
     import chip_smoke as cs
     from repro_torch.configs import get_config
     from repro_torch.models import model as model_lib
@@ -100,7 +108,8 @@ def main() -> int:
     prompts = cs.lm_prompts(cfg.vocab_size, cs.LM_SLOTS, cs.LM_PROMPT,
                             seed=0)
     result = {"device": smi, "torch": torch.__version__,
-              "prompt_tokens": cs.LM_PROMPT, "layouts": {}}
+              "src": str(args.src), "prompt_tokens": cs.LM_PROMPT,
+              "layouts": {}}
     for layout in cs.LM_LAYOUTS:
         lcfg = cfg.with_(agg_layout=layout)
         ported = cs.LM_KERNELS[layout]
