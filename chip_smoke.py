@@ -301,21 +301,32 @@ def work(torch, op, args, kwargs):
         h = a.shape[1]
         return 2.0 * n * d * h, 4 * (n * d + d * h + h + n * h)
     if op == "cf_weights":
-        a, _, u, _ = args
+        # only co-rated items add anything (every term carries both masks):
+        # three multiply-adds per co-rated (q, u, item) triple, the squares
+        # once per rated entry of either side
+        a, am, u, um = args
         nq, ni = a.shape
         nu = u.shape[0]
-        return 6.0 * nq * nu * ni, 4 * (2 * nq * ni + 2 * nu * ni + nq * nu)
+        a_nz, u_nz = am != 0, um != 0
+        co = float((a_nz.sum(0, dtype=torch.float64)
+                    * u_nz.sum(0, dtype=torch.float64)).sum())
+        return (6.0 * co + int(a_nz.sum()) + int(u_nz.sum()),
+                4 * (2 * nq * ni + 2 * nu * ni + nq * nu))
     if op == "cf_refine":
-        # per used slot and item: four multiply-adds for the four sums and
-        # two for the accumulations (12 operations); the squares of the
-        # centred ratings once per query and per distinct used row.  Each
-        # distinct used row read once; w written once.
-        a, _, _, _, idx, use = args
+        # per used slot: four multiply-adds for the four sums over the items
+        # the query and the selected user both rated (8 operations each),
+        # two for the accumulations over the items the selected user rated
+        # (4 each).  Each distinct used row read once; w written once.
+        a, am, _, m, idx, use = args
         nq, ni = a.shape
         nb = idx.shape[1]
-        rows = int(torch.unique(idx[use]).numel())
-        return (12.0 * int(use.sum()) * ni + (nq + rows) * ni,
-                4 * 4 * nq * ni + 8 * rows * ni + 9 * nq * nb)
+        rows = idx.long().clamp(0, m.shape[0] - 1)
+        m_nz = (m != 0).to(torch.float32)
+        co = ((am != 0).to(torch.float32) @ m_nz.T).gather(1, rows)
+        rated = m_nz.sum(1)[rows]
+        n_rows = int(torch.unique(rows[use]).numel())
+        return (float((8.0 * co + 4.0 * rated)[use].sum(dtype=torch.float64)),
+                4 * 4 * nq * ni + 8 * n_rows * ni + 9 * nq * nb)
     if op == "agg_refine_attention":
         # the live rows of the selected buckets: each distinct (sequence,
         # bucket) read once, every selection slot computed (2 G (dk + dv)

@@ -2,10 +2,11 @@
 
 Gather-free CF stage-2 refinement; replaces
 ``src/repro/kernels/cf_refine.py:cf_refine_pallas``.  The plain version is
-``ref.cf_refine``.  The active rows and the shard's ratings are centred here
-with plain torch, as the TPU wrapper centres them; the kernel's two
-launches (weights, then the ordered accumulation) count as one launch of
-the kernel.
+``ref.cf_refine``.  The kernel centres the active rows and the shard on the
+card while it compacts their rated entries (``cf_sparse``), then works on
+the selected users' rated entries only; its two launches (the compaction,
+then weights and the ordered accumulation, a block a query) count as one
+launch of the kernel.
 """
 from __future__ import annotations
 
@@ -13,12 +14,11 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
-from repro_torch.kernels.ref import _centred
+from repro_torch.kernels import _build, cf_sparse
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGS = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P, _P]
-_MAX_Q = 65535        # grid.y holds one query per block row
+_ARGS = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P,
+         _P, _P]
 
 
 def cf_refine_cuda(
@@ -43,9 +43,6 @@ def cf_refine_cuda(
     _build.expect(idx, "idx", torch.int32, (nq, None), dev)
     nb = idx.shape[1]
     _build.expect(use, "use", torch.bool, (nq, nb), dev)
-    if nq > _MAX_Q:
-        raise ValueError(f"{nq} active users: the kernel takes at most "
-                         f"{_MAX_Q}")
     w = torch.empty((nq, nb), dtype=torch.float32, device=dev)
     num = torch.empty((nq, ni), dtype=torch.float32, device=dev)
     den = torch.empty((nq, ni), dtype=torch.float32, device=dev)
@@ -53,14 +50,14 @@ def cf_refine_cuda(
         return w.zero_(), num, den
     if nu == 0:
         raise ValueError("ratings is empty: no user to refine against")
-    ac = _centred(active, active_mask)
-    uc = _centred(ratings, mask)
+    scratch = (*cf_sparse.lists(nq, ni, dev), *cf_sparse.lists(nu, ni, dev))
     fn = _build.entry("cf_refine", "cf_refine_f32", _ARGS)
     with _build.on_device(dev):
-        err = fn(ac.data_ptr(), active_mask.data_ptr(), uc.data_ptr(),
+        err = fn(active.data_ptr(), active_mask.data_ptr(), ratings.data_ptr(),
                  mask.data_ptr(), idx.data_ptr(), use.data_ptr(), nq, nu, nb,
-                 ni, float(shrink), w.data_ptr(), num.data_ptr(),
-                 den.data_ptr(), _build.stream_of(active))
+                 ni, float(shrink), *(t.data_ptr() for t in scratch),
+                 w.data_ptr(), num.data_ptr(), den.data_ptr(),
+                 _build.stream_of(active))
     _build.check("cf_refine", err)
     cf_refine_cuda.launches += 1
     return w, num, den

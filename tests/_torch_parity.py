@@ -143,3 +143,50 @@ def assert_topk_match(got_d, got_l, want_d, want_l, next_d=None, *,
         f"labels differ away from near-ties at {np.argwhere(unexplained)[:5]}"
     )
     return [(int(q), int(j), float(wd[q, j])) for q, j in np.argwhere(differ)]
+
+
+# (Q, U, I, density, skew, mask values) of the card tests of the two CF
+# kernels: no ratings, every item rated, uniform, make_netflix_like's Zipf
+# skew (popular items first), mask values other than 0 and 1, the path's
+# I = 17,700 with few users, I not a multiple of 4, more active users than
+# one group of the cf_weights grid takes, and enough pairs for its grid to
+# need no split of the items
+CF_SPARSE_CASES = [
+    (16, 40, 300, 0.0, 0.0, (1.0,)),
+    (16, 40, 300, 1.0, 0.0, (1.0,)),
+    (33, 70, 1001, 0.3, 0.0, (1.0,)),
+    (64, 200, 2000, 0.05, 0.8, (1.0,)),
+    (20, 50, 517, 0.3, 0.0, (0.5, 1.0, 2.0)),
+    (3, 5, 17_700, 0.012, 0.8, (1.0,)),
+    (9, 37, 2003, 0.2, 0.8, (1.0,)),
+    (300, 70, 700, 0.1, 0.8, (1.0,)),
+    (640, 1700, 700, 0.05, 0.8, (1.0,)),
+]
+
+
+def cf_sparse_inputs(seed, qn, un, ni, density, skew=0.0,
+                     mask_values=(1.0,)):
+    """Active and neighbour ratings (1..5 stars where rated, 0 elsewhere)
+    and masks at ``density``; with ``skew`` item i is rated with a
+    probability proportional to (1 + i) ** -skew, as make_netflix_like
+    draws it (clipped at 0.95); without, every item at ``density``.  Mask values are drawn from
+    ``mask_values``.  Row 0 of each side (when it has two rows) rates every
+    item it rates with 3 stars and a mask of 1, so its centred ratings are
+    exactly 0; row 1 rates nothing."""
+    r = rng(seed)
+    n = qn + un
+    pop = np.full(ni, density)
+    if skew:
+        pop = (1.0 + np.arange(ni)) ** -skew
+        pop = np.clip(pop / pop.mean() * density, 0.0, 0.95)
+    rated = r.random((n, ni)) < pop[None, :]
+    m = np.where(rated, r.choice(np.asarray(mask_values, np.float32),
+                                 (n, ni)), 0.0).astype(np.float32)
+    x = np.where(rated, r.integers(1, 6, (n, ni)), 0).astype(np.float32)
+    for first, rows in ((0, qn), (qn, un)):
+        if rows >= 2:
+            x[first] = np.where(rated[first], 3.0, 0.0)
+            m[first] = rated[first].astype(np.float32)
+            x[first + 1] = 0.0
+            m[first + 1] = 0.0
+    return x[:qn], m[:qn], x[qn:], m[qn:]

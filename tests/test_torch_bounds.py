@@ -1,0 +1,99 @@
+"""``chip_smoke.work`` counts the work the two CF kernels must do on their
+inputs: operations on the rated and co-rated entries only, each dense input
+read once and each output written once.  Hand counts on tiny CPU inputs;
+no card needed."""
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")  # the port's tests need PyTorch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+import chip_smoke  # noqa: E402
+
+
+def _t(a, dtype=torch.float32):
+    return torch.tensor(np.asarray(a), dtype=dtype)
+
+
+# Active users rate {0, 1} and {2}; neighbours {0}, {0, 2} and nothing.
+# Co-rated pairs: (0, 0) item 0, (0, 1) item 0, (1, 1) item 2.  The mask
+# values 0.5 and 2 count as rated.
+PATTERN_A = [[1.0, 0.5, 0.0], [0.0, 0.0, 1.0]]
+PATTERN_U = [[2.0, 0.0, 0.0], [1.0, 0.0, 1.0], [0.0, 0.0, 0.0]]
+
+
+def _ratings(mask):
+    return _t(np.where(np.asarray(mask) != 0, 4.0, 0.0))
+
+
+def _weights(am, um):
+    am, um = _t(am), _t(um)
+    return chip_smoke.work(torch, "cf_weights",
+                           (_ratings(am), am, _ratings(um), um), {})
+
+
+def test_cf_weights_with_no_ratings_does_no_operations():
+    flops, nbytes = _weights(np.zeros((2, 5)), np.zeros((3, 5)))
+    assert flops == 0
+    assert nbytes == 4 * (2 * 2 * 5 + 2 * 3 * 5 + 2 * 3)
+
+
+def test_cf_weights_dense_counts_every_triple():
+    flops, nbytes = _weights(np.ones((2, 4)), np.ones((3, 4)))
+    # 6 operations per (q, u, item) triple, a square per rated entry
+    assert flops == 6 * 2 * 3 * 4 + (2 * 4 + 3 * 4)
+    assert nbytes == 4 * (2 * 2 * 4 + 2 * 3 * 4 + 2 * 3)
+
+
+def test_cf_weights_counts_the_co_rated_triples():
+    flops, nbytes = _weights(PATTERN_A, PATTERN_U)
+    assert flops == 6 * 3 + (3 + 3)
+    assert nbytes == 4 * (2 * 2 * 3 + 2 * 3 * 3 + 2 * 3)
+
+
+def _refine(am, um, idx, use):
+    am, um = _t(am), _t(um)
+    return chip_smoke.work(
+        torch, "cf_refine",
+        (_ratings(am), am, _ratings(um), um, _t(idx, torch.int32),
+         _t(use, torch.bool)), {"shrink": 8.0})
+
+
+def test_cf_refine_with_no_ratings_does_no_operations():
+    flops, nbytes = _refine(np.zeros((2, 5)), np.zeros((3, 5)),
+                            [[0, 1], [2, 2]], [[True, True], [True, True]])
+    assert flops == 0
+    # active rows and num / den, 3 distinct rows, idx + use + w
+    assert nbytes == 16 * 2 * 5 + 8 * 3 * 5 + 9 * 2 * 2
+
+
+def test_cf_refine_dense_counts_every_item_of_every_used_slot():
+    flops, nbytes = _refine(np.ones((2, 4)), np.ones((3, 4)),
+                            [[0, 1], [1, 2]], [[True, True], [True, True]])
+    # 8 per co-rated item and 4 per item the selected user rated, a slot
+    assert flops == 4 * (8 * 4 + 4 * 4)
+    assert nbytes == 16 * 2 * 4 + 8 * 3 * 4 + 9 * 2 * 2
+
+
+def test_cf_refine_counts_duplicate_used_slots_and_skips_unused_ones():
+    # query 0: user 1 twice (co-rated item 0; user 1 rated 2 items) and an
+    # unused slot; query 1: index 5 and -1 clip to users 2 and 0, user 2
+    # rated nothing, the slot of user 0 is unused
+    flops, nbytes = _refine(PATTERN_A, PATTERN_U, [[1, 1, 0], [5, -1, 2]],
+                            [[True, True, False], [True, False, True]])
+    assert flops == 2 * (8 * 1 + 4 * 2)
+    # distinct used rows: users 1 and 2
+    assert nbytes == 16 * 2 * 3 + 8 * 2 * 3 + 9 * 2 * 3
+
+
+def test_cf_bounds_are_set_by_bytes_on_sparse_ratings():
+    r = np.random.default_rng(0)
+    am = (r.random((8, 500)) < 0.02).astype(np.float32)
+    um = (r.random((40, 500)) < 0.02).astype(np.float32)
+    idx = r.integers(0, 40, (8, 6))
+    use = r.random((8, 6)) < 0.8
+    for flops, nbytes in (_weights(am, um), _refine(am, um, idx, use)):
+        assert chip_smoke.bound_ms(flops, nbytes)[1] == "bytes"

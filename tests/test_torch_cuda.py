@@ -15,13 +15,15 @@ import pytest
 torch = pytest.importorskip("torch")  # the port's tests need PyTorch
 
 from _torch_parity import (
-    BATCHED_TOPK_CASES, assert_close, assert_topk_match, batched_inputs,
-    candidates, cf_inputs, normal, rng, th, topk_inputs,
+    BATCHED_TOPK_CASES, CF_SPARSE_CASES, assert_close, assert_topk_match,
+    batched_inputs, candidates, cf_inputs, cf_sparse_inputs, normal, rng, th,
+    topk_inputs,
 )
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.agg_refine import agg_refine_attention_cuda
 from repro_torch.kernels.aggregated_attention import aggregated_attention_cuda
 from repro_torch.kernels.cf_refine import cf_refine_cuda
+from repro_torch.kernels.cf_weights import cf_weights_cuda
 from repro_torch.kernels.distance_topk import SMALL_MAX_N, distance_topk_cuda
 from repro_torch.kernels.knn_distance import knn_distance_cuda
 from repro_torch.kernels.lsh_hash import lsh_hash_cuda
@@ -215,6 +217,77 @@ def test_cuda_cf_refine(cuda, qn, un, ni, b, use_frac):
         assert_close(g, w, rtol=CF_TOL, atol=CF_TOL, err_msg=name)
     unused = ~args[5].cpu().numpy()
     assert (got[0].cpu().numpy()[unused] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qn,un,ni,density,skew,mask_values", CF_SPARSE_CASES)
+def test_cuda_cf_weights_sparse(cuda, qn, un, ni, density, skew,
+                                mask_values):
+    """Any density, skewed or not, and mask values other than 0 and 1; an
+    active or neighbour user whose centred ratings are all 0 (row 0) or who
+    rated nothing (row 1) has weights of exactly 0."""
+    args = _on(cuda, *cf_sparse_inputs(qn + un + ni, qn, un, ni, density,
+                                       skew, mask_values))
+    before = cf_weights_cuda.launches
+    got = ops.cf_weights(*args)
+    assert cf_weights_cuda.launches == before + 1
+    assert_close(got, ref.cf_weights(*args), rtol=CF_TOL, atol=CF_TOL)
+    assert bool((got[:2] == 0).all()) and bool((got[:, :2] == 0).all())
+
+
+def _refine_slots(seed, qn, un, b, use_frac):
+    """[qn, b] selected users with duplicates and out-of-range indices,
+    and their gate."""
+    r = rng(seed)
+    idx = r.integers(-2, un + 2, (qn, b)).astype(np.int32)
+    if b >= 2:
+        idx[:, 1] = idx[:, 0]          # a duplicate in every query
+    return idx, r.random((qn, b)) < use_frac
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qn,un,ni,density,skew,mask_values", [
+    *CF_SPARSE_CASES,
+    (2, 6, 41_000, 0.01, 0.8, (1.0,)),   # three passes over the items
+])
+@pytest.mark.parametrize("b,use_frac", [(0, 1.0), (7, 0.0), (40, 0.7)])
+def test_cuda_cf_refine_sparse(cuda, qn, un, ni, density, skew, mask_values,
+                               b, use_frac):
+    """Any density and mask values; duplicate and out-of-range indices, all
+    slots unused, B = 0.  A slot whose selected user's centred ratings are
+    all 0 (row 0) or who rated nothing (row 1), or whose query is such a
+    row, has a weight of exactly 0."""
+    a, am, u, um = cf_sparse_inputs(qn * 7 + un + ni, qn, un, ni, density,
+                                    skew, mask_values)
+    idx, use = _refine_slots(qn + b, qn, un, b, use_frac)
+    args = _on(cuda, a, am, u, um, idx, use)
+    before = cf_refine_cuda.launches
+    got = ops.cf_refine(*args, shrink=8.0)
+    assert cf_refine_cuda.launches == before + 1
+    want = ref.cf_refine(*args, shrink=8.0)
+    for g, w, name in zip(got, want, ("w_ref", "num_delta", "den_delta")):
+        assert g.shape == w.shape
+        assert_close(g, w, rtol=CF_TOL, atol=CF_TOL, err_msg=name)
+    w = got[0].cpu().numpy()
+    rows = np.clip(idx, 0, un - 1)
+    zero = ~use | (rows <= 1) | (np.arange(qn)[:, None] <= 1)
+    assert (w[zero] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["cf_weights", "cf_refine"])
+def test_cuda_cf_kernels_give_the_same_bits_twice(cuda, op):
+    """No atomics and one fixed order of every sum: two runs on the same
+    inputs give the same bits."""
+    a, am, u, um = cf_sparse_inputs(5, 64, 300, 3000, 0.02, 0.8)
+    if op == "cf_weights":
+        args = _on(cuda, a, am, u, um)
+        run = (lambda: (ops.cf_weights(*args),))
+    else:
+        args = _on(cuda, a, am, u, um, *_refine_slots(6, 64, 300, 60, 0.8))
+        run = (lambda: ops.cf_refine(*args, shrink=8.0))
+    for one, two in zip(run(), run()):
+        assert torch.equal(one, two)
 
 
 @pytest.mark.cuda
