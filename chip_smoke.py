@@ -278,17 +278,23 @@ def work(torch, op, args, kwargs):
             valid.numel() if valid is not None else 0)
         return 2.0 * nq * live * d, nbytes + 8 * b * nq * k
     if op == "candidate_topk":
+        # [Q,M], or a [P,Q,M] stack read as [Q, P M]: every value read
+        # once, a label only for each of the k winners (from the seed or
+        # the candidates); an unseeded slot past the candidates reads none
         dists = args[0]
-        nq, m = dists.shape
+        nq = dists.shape[-2]
+        m = dists.numel() // max(nq, 1)
         seeded = len(args) > 2 and args[2] is not None
-        return 0.0, 8 * nq * m + (8 * nq * k if seeded else 0) + 8 * nq * k
+        cols = m + (k if seeded else 0)
+        return 0.0, 4 * nq * cols + 4 * nq * min(k, cols) + 8 * nq * k
     if op == "knn_distance":
         q, p = args
         nq, d = q.shape
         n = p.shape[0]
         return 2.0 * nq * n * d, 4 * (nq * d + n * d + nq * n)
     if op == "refine_distances":
-        q, x, idx, valid = args
+        # the bucket of each row only schedules the kernel: not counted
+        q, x, idx, valid = args[:4]
         nq, d = q.shape
         nb = idx.shape[1]
         n_valid = int(valid.sum())
@@ -511,10 +517,11 @@ def library_call(torch, op, args, kwargs):
         q, p = args
         return lambda: torch.cdist(q, p)
     if op == "candidate_topk":
-        dists, labels = args[:2]
-        cat = dists
+        dists = args[0]
+        cat = (dists.permute(1, 0, 2).reshape(dists.shape[1], -1)
+               if dists.dim() == 3 else dists)
         if len(args) > 2 and args[2] is not None:
-            cat = torch.cat([args[2], dists], dim=1)
+            cat = torch.cat([args[2], cat], dim=1)
         return lambda: torch.topk(cat, kwargs["k"], dim=1, largest=False)
     if op == "aggregated_attention":
         return sdpa_call(torch, args, kwargs)

@@ -73,19 +73,20 @@ def merge_topk(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """[S,Q,k] shard-local top-k -> [Q,k] global top-k (the reduce).
 
-    Folds shards pairwise through the seeded streaming selection: shard s's
-    k-best merges into the running best of shards 0..s-1, which equals one
+    Shard 0's k-best seeds one streaming selection over shards 1..S-1 in
+    order, read in place: the same answer as folding them pairwise, shard
+    s's k-best into the running best of shards 0..s-1, which equals one
     top-k over the flattened candidates with the same tie rule.
     """
     s = gathered_dists.shape[0]
     d, lab = gathered_dists[0], gathered_labels[0]
     if s == 1 or d.shape[-1] != k:
         d, lab = local_topk(d, lab, k)  # sort/trim so the seed is a [Q,k] best
-    for i in range(1, s):
-        d, lab = kernel_ops.candidate_topk(
-            gathered_dists[i], gathered_labels[i], d, lab, k=k
-        )
-    return d, lab
+    if s == 1:
+        return d, lab
+    return kernel_ops.candidate_topk(
+        gathered_dists[1:], gathered_labels[1:], d, lab, k=k
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -259,7 +260,8 @@ def accurateml_map(
     covered = agg_lib.buckets_fully_covered(agg, rankings, refine_budget)
     covered = covered & (agg.counts[None, :] > 0)
 
-    d_ref = kernel_ops.refine_distances(test_x, train_x, idx, valid)
+    d_ref = kernel_ops.refine_distances(test_x, train_x, idx, valid,
+                                        agg.bucket_of, n_buckets=n_k)
     ref_y = train_y[idx.long()]                               # [Q, B]
     d_cent_masked = torch.where(covered, BIG, d_cent)
 

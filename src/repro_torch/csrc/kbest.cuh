@@ -119,3 +119,55 @@ __device__ __forceinline__ void warp_row_topk(
     }
   }
 }
+
+// ---------------------------------------------------------------------------
+// Rows split over several lanes, each lane with loads in flight.
+//
+// A row's candidates may come in parts: part p holds columns
+// [k + p m, k + (p + 1) m) at d + p * part_stride (a [parts, q, m] stack of
+// shard-local lists, read in place).  The seed holds columns [0, k).
+// ---------------------------------------------------------------------------
+
+constexpr int kScanBatch = 8;   // loads a lane issues before it inserts
+
+// Feed this lane's list with seed column first (a lane has at most one:
+// k <= 32 <= stride) and candidates first, first + stride, ... of every
+// part, kScanBatch loads issued before any of them is inserted.  A null
+// seed is (BIG, label 0) in every seed slot.  The order of insertion does
+// not change the list.
+template <int CAP>
+__device__ __forceinline__ void kb_scan_parts(
+    float (&bd)[CAP], int (&bc)[CAP], const float* __restrict__ d, int parts,
+    size_t part_stride, int m, const float* __restrict__ seed_d, int k,
+    int first, int stride) {
+  const float sv =
+      first < k ? (seed_d ? seed_d[first] : REPRO_BIG) : INFINITY;
+  for (int p = 0; p < parts; ++p) {
+    const float* row = d + p * part_stride;
+    const int col0 = k + p * m;
+    for (int j0 = first; j0 < m; j0 += kScanBatch * stride) {
+      float v[kScanBatch];
+#pragma unroll
+      for (int u = 0; u < kScanBatch; ++u) {
+        const int j = j0 + u * stride;
+        v[u] = j < m ? row[j] : INFINITY;
+      }
+#pragma unroll
+      for (int u = 0; u < kScanBatch; ++u) {
+        const int j = j0 + u * stride;
+        if (j < m) kb_insert(bd, bc, v[u], col0 + j);
+      }
+    }
+  }
+  if (first < k) kb_insert(bd, bc, sv, first);
+}
+
+// The label of column c of a row laid out as kb_scan_parts reads it.
+__device__ __forceinline__ int kb_label(int c, const int* __restrict__ l,
+                                        size_t part_stride, int m,
+                                        const int* __restrict__ seed_l,
+                                        int k) {
+  if (c < k) return seed_l ? seed_l[c] : 0;
+  const int p = (c - k) / m;
+  return l[p * part_stride + (c - k - p * m)];
+}

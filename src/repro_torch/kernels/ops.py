@@ -124,7 +124,8 @@ def candidate_topk(
     *, k: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Streaming top-k over precomputed [Q,M] candidates, optionally seeded
-    with a previous [Q,k] running best."""
+    with a previous [Q,k] running best.  A [P,Q,M] stack selects over its
+    parts concatenated in order along M."""
     if _on_card(dists):
         return candidate_topk_cuda(dists, labels, init_d, init_l, k=k)
     return ref.candidate_topk(dists, labels, init_d, init_l, k=k)
@@ -134,10 +135,14 @@ def candidate_topk(
 def refine_distances(
     queries: torch.Tensor, train_x: torch.Tensor,
     idx: torch.Tensor, valid: torch.Tensor,
+    bucket_of: torch.Tensor | None = None, *, n_buckets: int = 0,
 ) -> torch.Tensor:
-    """Gather-free stage-2 exact distances: [Q,B] with BIG where not valid."""
+    """Gather-free stage-2 exact distances: [Q,B] with BIG where not valid.
+    ``bucket_of`` ([N] bucket of each row, in [0, n_buckets)) schedules the
+    kernel, which needs it; the plain version does not read it."""
     if _on_card(queries):
-        return refine_distances_cuda(queries, train_x, idx, valid)
+        return refine_distances_cuda(queries, train_x, idx, valid, bucket_of,
+                                     n_buckets=n_buckets)
     return ref.refine_distances(queries, train_x, idx, valid)
 
 

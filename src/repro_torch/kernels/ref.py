@@ -57,7 +57,11 @@ def candidate_topk(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-query k smallest (distance, label) pairs from [Q, M] candidates,
     optionally seeded by a [Q, k] running best (selection over the
-    concatenation [seed | candidates])."""
+    concatenation [seed | candidates]).  [P, Q, M] candidates are the
+    concatenation of their parts in order: [Q, P M]."""
+    if dists.dim() == 3:
+        dists = dists.permute(1, 0, 2).reshape(dists.shape[1], -1)
+        labels = labels.permute(1, 0, 2).reshape(labels.shape[1], -1)
     if init_d is not None:
         dists = torch.cat([init_d, dists], dim=1)
         labels = torch.cat([init_l, labels], dim=1)
@@ -95,11 +99,13 @@ def distance_topk(
 def refine_distances(
     queries: torch.Tensor, train_x: torch.Tensor,
     idx: torch.Tensor, valid: torch.Tensor,
+    bucket_of: torch.Tensor | None = None, *, n_buckets: int = 0,
 ) -> torch.Tensor:
     """Per-query exact distances to selected originals, BIG where not valid.
 
     [Q,D],[N,D],[Q,B],[Q,B] -> [Q,B].  Gathers [Q,B,D]; indices are clipped
-    to [0, N) as the kernel clips them.
+    to [0, N) as the kernel clips them.  ``bucket_of`` and ``n_buckets``,
+    the kernel's schedule key, change nothing here.
     """
     qf = queries.float()
     rows = idx.long().clamp(0, train_x.shape[0] - 1)

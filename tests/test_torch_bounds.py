@@ -1,7 +1,10 @@
-"""``chip_smoke.work`` counts the work the two CF kernels must do on their
-inputs: operations on the rated and co-rated entries only, each dense input
-read once and each output written once.  Hand counts on tiny CPU inputs;
-no card needed."""
+"""``chip_smoke.work`` counts the work the kernels must do on their inputs:
+for the two CF kernels operations on the rated and co-rated entries only;
+for ``refine_distances`` each distinct selected row read once; for
+``candidate_topk`` every candidate's value of a 2-D list or a [P, Q, M]
+stack, and only the winners' labels.
+Each input read once and each output written once.  Hand counts on tiny
+CPU inputs; no card needed."""
 import sys
 from pathlib import Path
 
@@ -97,3 +100,66 @@ def test_cf_bounds_are_set_by_bytes_on_sparse_ratings():
     use = r.random((8, 6)) < 0.8
     for flops, nbytes in (_weights(am, um), _refine(am, um, idx, use)):
         assert chip_smoke.bound_ms(flops, nbytes)[1] == "bytes"
+
+
+def _refine_distances(idx, valid, with_buckets):
+    r = np.random.default_rng(1)
+    args = [_t(r.standard_normal((2, 3))), _t(r.standard_normal((5, 3))),
+            _t(idx, torch.int32), _t(valid, torch.bool)]
+    kwargs = {}
+    if with_buckets:   # the schedule key is not part of the work
+        args.append(_t([0, 0, 1, 1, 2], torch.int32))
+        kwargs = {"n_buckets": 3}
+    return chip_smoke.work(torch, "refine_distances", tuple(args), kwargs)
+
+
+@pytest.mark.parametrize("with_buckets", [False, True])
+def test_refine_distances_reads_each_distinct_row_once(with_buckets):
+    # valid slots: rows 0, 1 (query 0) and 4, 0, 2 (query 1); row 1's second
+    # slot is padding
+    flops, nbytes = _refine_distances([[0, 1, 1], [4, 0, 2]],
+                                      [[True, True, False],
+                                       [True, True, True]], with_buckets)
+    assert flops == 4 * 5 * 3           # |x|^2 and q.x per valid slot
+    # queries, distinct rows {0, 1, 2, 4}, idx, valid, out
+    assert nbytes == 4 * 2 * 3 + 4 * 4 * 3 + 4 * 6 + 6 + 4 * 6
+
+
+def test_refine_distances_with_nothing_valid_reads_no_row():
+    flops, nbytes = _refine_distances([[0, 1, 1], [4, 0, 2]],
+                                      np.zeros((2, 3), bool), True)
+    assert flops == 0
+    assert nbytes == 4 * 2 * 3 + 4 * 6 + 6 + 4 * 6
+
+
+# k 3, two rows: each value read once, the labels of the winners only (3
+# a row, fewer where the row has fewer columns), the [2, 3] output written
+@pytest.mark.parametrize("shape,seeded,want", [
+    ((2, 4), False, 4 * 2 * 4 + 4 * 2 * 3 + 8 * 2 * 3),
+    # the seed's 3 values are columns too
+    ((2, 4), True, 4 * 2 * (4 + 3) + 4 * 2 * 3 + 8 * 2 * 3),
+    # a [3, 2, 4] stack: 12 candidates a row
+    ((3, 2, 4), True, 4 * 2 * (12 + 3) + 4 * 2 * 3 + 8 * 2 * 3),
+    # 2 columns for k 3: the third slot is unseeded and reads no label
+    ((2, 2), False, 4 * 2 * 2 + 4 * 2 * 2 + 8 * 2 * 3),
+])
+def test_candidate_topk_reads_every_candidate_once(shape, seeded, want):
+    d = torch.zeros(shape)
+    lab = torch.zeros(shape, dtype=torch.int32)
+    seed = ((torch.zeros(2, 3), torch.zeros(2, 3, dtype=torch.int32))
+            if seeded else ())
+    flops, nbytes = chip_smoke.work(torch, "candidate_topk",
+                                    (d, lab, *seed), {"k": 3})
+    assert flops == 0 and nbytes == want
+
+
+def test_candidate_topk_yardstick_reads_a_stack_as_one_row():
+    """chip_smoke's torch.topk call over [seed | part 0 | part 1 ...]."""
+    r = np.random.default_rng(3)
+    d = torch.tensor(r.random((3, 2, 4)), dtype=torch.float32)
+    seed = torch.tensor(r.random((2, 2)), dtype=torch.float32)
+    args = (d, torch.zeros((3, 2, 4), dtype=torch.int32), seed,
+            torch.zeros((2, 2), dtype=torch.int32))
+    got = chip_smoke.library_call(torch, "candidate_topk", args, {"k": 2})()
+    flat = torch.cat([seed, d.permute(1, 0, 2).reshape(2, 12)], dim=1)
+    assert torch.equal(got.values, flat.sort(dim=1).values[:, :2])

@@ -15,18 +15,20 @@ import pytest
 torch = pytest.importorskip("torch")  # the port's tests need PyTorch
 
 from _torch_parity import (
-    BATCHED_TOPK_CASES, CF_SPARSE_CASES, assert_close, assert_topk_match,
-    batched_inputs, candidates, cf_inputs, cf_sparse_inputs, normal, rng, th,
-    topk_inputs,
+    BATCHED_TOPK_CASES, BIG, CF_SPARSE_CASES, assert_close,
+    assert_topk_match, batched_inputs, candidates, cf_inputs,
+    cf_sparse_inputs, normal, np_of, rng, th, topk_inputs,
 )
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.agg_refine import agg_refine_attention_cuda
 from repro_torch.kernels.aggregated_attention import aggregated_attention_cuda
+from repro_torch.kernels.candidate_topk import candidate_topk_cuda
 from repro_torch.kernels.cf_refine import cf_refine_cuda
 from repro_torch.kernels.cf_weights import cf_weights_cuda
 from repro_torch.kernels.distance_topk import SMALL_MAX_N, distance_topk_cuda
 from repro_torch.kernels.knn_distance import knn_distance_cuda
 from repro_torch.kernels.lsh_hash import lsh_hash_cuda
+from repro_torch.kernels.refine_distances import refine_distances_cuda
 from repro_torch.kernels.topk_stream import MAX_K
 
 CF_TOL = 2e-4  # tests/test_kernels.py:63,317
@@ -152,15 +154,83 @@ def test_cuda_distance_kernels_give_the_same_bits_twice(cuda, regime):
         assert torch.equal(a, b)
 
 
+# the row lengths of each regime (a warp, a block a row) and the path's:
+# the reduce's 5, the shard's 2875; every CAP of the k-best
+TOPK_M = (1, 5, 2875, 20_000)
+TOPK_K = (1, 5, 6, 8, 9, 16, 17, 32)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("q,m,k,seeded", [(1, 1, 1, False), (9, 3, 5, True),
-                                          (300, 2875, 6, True),
-                                          (20, 10, 17, False)])
+@pytest.mark.parametrize("q,m,k,seeded", [
+    (1, 1, 1, False), (9, 3, 5, True), (300, 2875, 6, True),
+    (20, 10, 17, False), (1024, 2875, 5, False), (7, 65, 3, True),
+    (5, 1025, 32, True),
+] + [(33, m, k, seeded) for m in TOPK_M for k in TOPK_K
+     for seeded in (False, True)])
 def test_cuda_candidate_topk(cuda, q, m, k, seeded):
     args = _on(cuda, *candidates(q + m + k, q, m, k, seeded))
+    before = candidate_topk_cuda.launches
     got = ops.candidate_topk(*args, k=k)
     want = ref.candidate_topk(*args, k=k)
+    assert candidate_topk_cuda.launches == before + 1
     assert_topk_match(*got, *want, rtol=0, atol=0)
+    for a, b in zip(got, ops.candidate_topk(*args, k=k)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,seeded", [(40, 5, True), (40, 9, False),
+                                        (600, 6, True), (2875, 5, True),
+                                        (2875, 32, False), (5000, 17, True)])
+def test_cuda_candidate_topk_ties_go_to_the_lowest_column(cuda, m, k, seeded):
+    """Rows of few distinct values and BIG padding: each label names its
+    column, so the labels show which of equal candidates won (the seed,
+    then the lowest column)."""
+    r = rng(m + k)
+    q = 40
+    d = r.integers(0, 3, (q, m)).astype(np.float32)
+    d[r.random((q, m)) < 0.3] = BIG
+    d[0] = BIG                                    # a row of padding only
+    lab = np.broadcast_to(np.arange(k, k + m, dtype=np.int32), (q, m)).copy()
+    init_d = init_l = None
+    if seeded:
+        init_d = np.sort(r.integers(0, 3, (q, k)).astype(np.float32), axis=1)
+        init_d[1] = BIG
+        init_l = np.broadcast_to(np.arange(k, dtype=np.int32), (q, k)).copy()
+    args = _on(cuda, d, lab, init_d, init_l)
+    got_d, got_l = ops.candidate_topk(*args, k=k)
+    want_d, want_l = ref.candidate_topk(*args, k=k)
+    np.testing.assert_array_equal(np_of(got_d), np_of(want_d))
+    real = np_of(want_d) < BIG / 2
+    np.testing.assert_array_equal(np_of(got_l)[real], np_of(want_l)[real])
+    if not seeded:   # unseeded slots are (BIG, label 0)
+        assert (np_of(got_l)[~real] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p,q,m,k", [(1, 9, 5, 5), (7, 1024, 5, 5),
+                                     (7, 300, 6, 6), (3, 50, 40, 8),
+                                     (2, 20, 700, 17)])
+def test_cuda_candidate_topk_reads_a_stack_in_place(cuda, p, q, m, k):
+    """A [P, Q, M] stack is one selection over its parts in order: the
+    shard reduce's S - 1 folds in one launch, equal to the pairwise fold."""
+    r = rng(p * q + m)
+    d = np.sort(r.integers(0, 9, (p, q, m)).astype(np.float32), axis=-1)
+    lab = r.integers(0, 100, (p, q, m)).astype(np.int32)
+    init_d = np.sort(r.integers(0, 9, (q, k)).astype(np.float32), axis=1)
+    init_l = r.integers(0, 100, (q, k)).astype(np.int32)
+    args = _on(cuda, d, lab, init_d, init_l)
+    before = candidate_topk_cuda.launches
+    got = ops.candidate_topk(*args, k=k)
+    assert candidate_topk_cuda.launches == before + 1
+    want = ref.candidate_topk(*args, k=k)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    fold_d, fold_l = args[2], args[3]
+    for i in range(p):
+        fold_d, fold_l = ref.candidate_topk(args[0][i], args[1][i], fold_d,
+                                            fold_l, k=k)
+    assert torch.equal(got[0], fold_d) and torch.equal(got[1], fold_l)
 
 
 @pytest.mark.cuda
@@ -179,15 +249,76 @@ def test_cuda_knn_distance(cuda, q, n, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("q,n,d,b", [(1, 1, 1, 1), (30, 120, 217, 40),
-                                     (4, 50, 500, 70)])
-def test_cuda_refine_distances(cuda, q, n, d, b):
+@pytest.mark.parametrize("q,n,d,b,n_keys", [
+    (1, 1, 1, 1, 1), (30, 120, 217, 40, 7), (4, 50, 500, 70, 3),
+    # B off every tile, features past one staged slice, one key for all
+    (9, 500, 217, 131, 1), (3, 4000, 300, 3100, 40), (33, 90, 17, 257, 5),
+])
+def test_cuda_refine_distances(cuda, q, n, d, b, n_keys):
+    """Arbitrary idx, with no bucket structure: slots that share a key hold
+    other rows than the staged ones and are summed from device memory."""
     r = rng(q + n + d + b)
-    qs, xs, idx, valid = _on(cuda, normal(r, q, d), normal(r, n, d),
-                             r.integers(-2, n + 2, (q, b)).astype(np.int32),
-                             r.random((q, b)) < 0.7)
-    assert_close(ops.refine_distances(qs, xs, idx, valid),
-                 ref.refine_distances(qs, xs, idx, valid))
+    qs, xs, idx, valid, bucket_of = _on(
+        cuda, normal(r, q, d), normal(r, n, d),
+        r.integers(-2, n + 2, (q, b)).astype(np.int32),
+        r.random((q, b)) < 0.7,
+        r.integers(-1, n_keys + 1, n).astype(np.int32))
+    got = ops.refine_distances(qs, xs, idx, valid, bucket_of,
+                               n_buckets=n_keys)
+    assert_close(got, ref.refine_distances(qs, xs, idx, valid))
+    assert torch.equal(got >= BIG / 2, ~valid)
+
+
+def _refinement(dev, n, d, q, ratio, budget, hot, dead, seed):
+    """A refinement selection of the kNN path on a small shard: the port's
+    own aggregates, each query's ranking by its centroid distances, and
+    ``refinement_indices`` at ``budget``.  With ``hot`` every query ranks
+    the largest bucket first; the first ``dead`` rows are all invalid."""
+    from repro_torch.apps import knn
+    from repro_torch.core import aggregate as agg_lib
+    from repro_torch.core import correlation, lsh
+    from repro_torch.data.synthetic import make_mfeat_like
+
+    x, y = make_mfeat_like(torch.Generator().manual_seed(seed),
+                           n_points=n + q, n_features=d, device="cpu")
+    params = lsh.init_lsh(torch.Generator().manual_seed(seed + 1), d,
+                          lsh.config_for_compression(n, ratio), device="cpu")
+    agg = knn.build_knn_aggregates(x[q:], y[q:], params, 10).agg
+    corr = -ref.knn_distance(x[:q], agg.means)
+    if hot:
+        corr[:, int(agg.counts.argmax())] = 1.0
+    ranking = correlation.rank_buckets_multi(corr, agg.counts)
+    idx, valid = agg_lib.refinement_indices(agg, ranking, budget)
+    valid[:dead] = False
+    return ([t.to(dev) for t in (x[:q], x[q:], idx, valid, agg.bucket_of)],
+            agg.n_buckets)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,q,ratio,budget,hot,dead", [
+    (4000, 217, 64, 20.0, 200, False, 0),    # ~10 buckets a query
+    (4000, 217, 100, 20.0, 131, True, 3),    # one bucket for 100 queries
+    (3000, 50, 40, 150.0, 600, False, 0),    # buckets past one 64-row tile
+    (2000, 300, 20, 10.0, 63, True, 0),      # features past one slice
+    (6000, 217, 1024, 100.0, 60, False, 1024),   # every slot invalid
+])
+def test_cuda_refine_distances_on_a_refinement_selection(
+        cuda, n, d, q, ratio, budget, hot, dead):
+    """The path's selections, made of whole bucket runs and a partial last
+    run: equal to the plain version, BIG exactly where not valid, the same
+    bits on two runs."""
+    (qs, xs, idx, valid, bucket_of), n_keys = _refinement(
+        cuda, n, d, q, ratio, budget, hot, dead, seed=n + q)
+    before = refine_distances_cuda.launches
+    got = ops.refine_distances(qs, xs, idx, valid, bucket_of,
+                               n_buckets=n_keys)
+    assert refine_distances_cuda.launches == before + 1
+    want = ref.refine_distances(qs, xs, idx, valid)
+    assert torch.equal(got >= BIG / 2, ~valid)
+    assert_close(got[valid], want[valid])
+    again = ops.refine_distances(qs, xs, idx, valid, bucket_of,
+                                 n_buckets=n_keys)
+    assert torch.equal(got, again)
 
 
 @pytest.mark.cuda
@@ -326,6 +457,17 @@ def test_cuda_kernels_refuse_what_they_do_not_take(cuda):
         ops.cf_refine(a, am, u, um, idx, use, shrink=8.0)
     with pytest.raises(ValueError, match="users_mask"):
         ops.cf_weights(a, am, u, um[:, :5].contiguous())
+    idx32, valid = idx.int(), use
+    with pytest.raises(ValueError, match="bucket_of"):
+        ops.refine_distances(qs, ps, idx32[:, :3], valid)
+    with pytest.raises(ValueError, match="bucket_of"):
+        ops.refine_distances(qs, ps, idx32, valid,
+                             torch.zeros(3, dtype=torch.int32, device=cuda),
+                             n_buckets=1)
+    with pytest.raises(ValueError, match="dists"):
+        ops.candidate_topk(torch.zeros(2, 3, 4, 5, device=cuda),
+                           torch.zeros(2, 3, 4, 5, dtype=torch.int32,
+                                       device=cuda), k=2)
 
 
 def normal_on(dev, *shape):

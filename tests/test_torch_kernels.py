@@ -6,6 +6,9 @@ are held against the JAX Pallas kernel bodies in interpret mode and against
 the JAX plain versions, on the same numpy inputs.  The CUDA kernels
 themselves are held against the plain versions by ``test_torch_cuda.py``.
 """
+import re
+from pathlib import Path
+
 import jax
 import numpy as np
 import pytest
@@ -30,7 +33,7 @@ from repro.kernels.lsh_hash import lsh_hash_pallas
 from repro.kernels.refine_distances import refine_distances_pallas
 from repro.kernels.topk_stream import candidate_topk_pallas
 from repro_torch.core import lsh
-from repro_torch.kernels import ops, ref, topk_stream
+from repro_torch.kernels import ops, ref, refine_schedule, topk_stream
 from repro_torch.kernels.candidate_topk import candidate_topk_cuda
 from repro_torch.kernels.distance_topk import distance_topk_cuda
 
@@ -258,22 +261,106 @@ def test_fewer_candidates_than_k_pad_with_big_and_label_zero():
 # refine_distances
 # ---------------------------------------------------------------------------
 
+def _reference_selection(n, d, q, ratio, budget, hot):
+    """A kNN refinement selection built by the JAX package: its aggregates
+    of a small shard, each query's ranking by its centroid distances, its
+    ``refinement_indices``.  With ``hot`` every query ranks the largest
+    bucket first.  Numpy arrays: queries, points, idx, valid, bucket_of,
+    perm, offsets."""
+    from repro.apps import knn as jknn
+    from repro.core import aggregate as jagg
+    from repro.core import correlation as jcorr
+    from repro.core import lsh as jlsh
+    from repro.data.synthetic import make_mfeat_like
+
+    x, y = make_mfeat_like(jax.random.PRNGKey(n + q), n_points=n + q,
+                           n_features=d, n_classes=6)
+    cfg = jlsh.config_for_compression(n, ratio)
+    params = jlsh.init_lsh(jax.random.PRNGKey(q), d, cfg)
+    agg = jknn.build_knn_aggregates(x[q:], y[q:], params, 6).agg
+    corr = -jref.knn_distance(x[:q], agg.means)
+    if hot:
+        corr = corr.at[:, int(np.argmax(np.asarray(agg.counts)))].set(1.0)
+    ranking = jcorr.rank_buckets_multi(corr, agg.counts)
+    idx, valid = jax.vmap(
+        lambda r: jagg.refinement_indices(agg, r, budget))(ranking)
+    return tuple(np.asarray(a) for a in (x[:q], x[q:], idx, valid,
+                                         agg.bucket_of, agg.perm,
+                                         agg.offsets))
+
+
+# b: the width of a random selection, or (budget, ratio, hot) of a kNN
+# refinement selection built by the JAX package, passed with the bucket of
+# each row as the path passes it
 @pytest.mark.parametrize("q,n,d,b", [(1, 1, 1, 1), (30, 120, 217, 40),
-                                     (4, 50, 500, 7), (9, 33, 17, 64)])
+                                     (4, 50, 500, 7), (9, 33, 17, 64),
+                                     (6, 600, 24, (45, 20.0, False)),
+                                     (5, 500, 217, (23, 50.0, True))])
 def test_refine_distances_parity(q, n, d, b):
-    r = rng(q + n * 13 + d * 101 + b)
-    qs, xs = normal(r, q, d), normal(r, n, d)
-    idx = r.integers(0, n, (q, b)).astype(np.int32)
-    valid = r.random((q, b)) < 0.7
-    got = ops.refine_distances(th(qs), th(xs), th(idx), th(valid))
-    assert got.shape == (q, b) and got.dtype == torch.float32
+    if isinstance(b, tuple):
+        qs, xs, idx, valid, bucket_of, _, offsets = _reference_selection(
+            n, d, q, *b)
+        keys = (th(bucket_of.astype(np.int32)),)
+        kw = {"n_buckets": len(offsets) - 1}
+    else:
+        r = rng(q + n * 13 + d * 101 + b)
+        qs, xs = normal(r, q, d), normal(r, n, d)
+        idx = r.integers(0, n, (q, b)).astype(np.int32)
+        valid = r.random((q, b)) < 0.7
+        keys, kw = (), {}
+    got = ops.refine_distances(th(qs), th(xs), th(idx), th(valid), *keys,
+                               **kw)
+    assert got.shape == idx.shape and got.dtype == torch.float32
     assert_close(got, jref.refine_distances(jx(qs), jx(xs), jx(idx),
                                             jx(valid)))
     assert_close(got, refine_distances_pallas(jx(qs), jx(xs), jx(idx),
                                               jx(valid), interpret=True))
+    assert ((np_of(got) >= BIG / 2) == ~valid).all()
     none = ops.refine_distances(th(qs), th(xs), th(idx),
-                                th(np.zeros_like(valid)))
+                                th(np.zeros_like(valid)), *keys, **kw)
     assert (np_of(none) >= BIG / 2).all()
+
+
+@pytest.mark.parametrize("n,d,q,ratio,budget,hot", [
+    (600, 24, 6, 20.0, 45, False), (500, 217, 40, 50.0, 23, True),
+    (2000, 8, 70, 10.0, 700, True), (300, 8, 9, 30.0, 301, False),
+])
+def test_refinement_selection_is_runs_of_bucket_prefixes(n, d, q, ratio,
+                                                         budget, hot):
+    """What the kernel's schedule relies on, held on the JAX package's own
+    selections: a query row's valid slots are maximal runs of one bucket,
+    each run the first rows of its bucket (perm[offsets[b]:][:length]), so
+    the runs of a bucket hold the rows of its longest one and no slot of a
+    refinement selection is summed from device memory.  With ``hot`` the
+    largest bucket is refined by every query."""
+    _, _, idx, valid, bucket_of, perm, offsets = _reference_selection(
+        n, d, q, ratio, budget, hot)
+    runs_of = np.zeros(len(offsets) - 1, np.int64)
+    for qq in range(q):
+        slots = np.flatnonzero(valid[qq])
+        keys = bucket_of[idx[qq, slots]]
+        # valid slots are one stretch from slot 0, padding after them
+        np.testing.assert_array_equal(slots, np.arange(len(slots)))
+        cuts = np.flatnonzero(np.diff(keys)) + 1
+        run_keys = keys[np.r_[0, cuts]] if len(slots) else keys
+        # each bucket refined at most once a query
+        assert len(set(run_keys.tolist())) == len(run_keys)
+        runs_of[run_keys] += 1
+        for b0, b1 in zip(np.r_[0, cuts], np.r_[cuts, len(slots)]):
+            key = keys[b0]
+            np.testing.assert_array_equal(
+                idx[qq, b0:b1], perm[offsets[key]:offsets[key] + b1 - b0])
+    if hot:
+        assert runs_of[np.argmax(np.diff(offsets))] == q
+
+
+def test_refine_schedule_mirrors_the_kernels_constants():
+    text = (Path(__file__).resolve().parent.parent
+            / "src/repro_torch/csrc/refine_distances.cu").read_text()
+    chunk = re.search(r"constexpr int kChunk = (\d+);", text)
+    assert chunk and int(chunk.group(1)) == refine_schedule.CHUNK
+    # a run is one lane's float4 slot: groups of four runs, a warp a group
+    assert refine_schedule.CHUNK % 4 == 0
 
 
 def test_refine_distances_clips_indices():

@@ -94,7 +94,8 @@ def test_majority_vote_parity_with_ties_and_padding():
     assert int(got[7]) == 0
 
 
-@pytest.mark.parametrize("s,width", [(1, 5), (3, 5), (4, 9), (1, 7)])
+@pytest.mark.parametrize("s,width", [(1, 5), (3, 5), (4, 9), (1, 7),
+                                     (2, 5), (8, 5), (8, 9), (2, 9)])
 def test_merge_topk_parity(s, width):
     r = rng(s * 10 + width)
     d = np.sort(r.integers(0, 15, (s, 11, width)).astype(np.float32), axis=-1)

@@ -2,14 +2,16 @@
 """Where the time goes in the PyTorch port's kNN jobs, on one NVIDIA GPU.
 
     python3 tools/torch_knn_profile.py [--out results/knn_profile.json]
+                                       [--src DIR] [--runs N]
 
 Builds the data and the jobs of ``chip_smoke.py``'s main path (its
 ``make_data`` and ``knn_jobs``: mfeat-factors scale, 2.3 M points x 217
 features x 10 classes, 1024 queries, 8 shards), runs each job once to warm
 up, then for each job:
 
-- its warm time on the host clock up to a synchronise, the median of three
-  runs (``job_ms``);
+- its warm time on the host clock up to a synchronise, the median of
+  ``--runs`` runs, three by default (``job_ms``; host times spread, so
+  compare medians of many runs);
 - one more run under ``torch.profiler`` with CPU and CUDA activity: the
   device time summed over every kernel and copy (``device_ms``), the idle
   share of the card over that run (1 - device / wall), and the device time
@@ -17,8 +19,10 @@ up, then for each job:
   share.
 
 Prints one JSON line with the results and the card's name and power limit,
-and writes the same object to ``--out`` when given.  Exits non-zero when
-there is no CUDA device.  Imports nothing of JAX.
+and writes the same object to ``--out`` when given.  ``--src`` is the
+``src`` directory whose ``repro_torch`` is imported (the repository's own
+by default), so that two versions can be compared in one call.  Exits
+non-zero when there is no CUDA device.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -31,8 +35,9 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-PORTED = ("distance_topk", "candidate_topk", "knn_distance",
-          "refine_distances")
+# Names of the four kNN kernels' launches, as the profiler lists them
+# (refine_distances makes refine_mark_kernel, refine_plan_kernel, ...).
+PORTED = ("distance_topk", "candidate_topk", "knn_distance", "refine_")
 
 
 def _device_us(evt) -> float:
@@ -48,9 +53,9 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def profile_job(torch, fn) -> dict:
+def profile_job(torch, fn, runs: int) -> dict:
     times = []
-    for _ in range(3):
+    for _ in range(runs):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
@@ -84,13 +89,15 @@ def profile_job(torch, fn) -> dict:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", type=Path, default=None)
+    parser.add_argument("--src", type=Path, default=ROOT / "src")
+    parser.add_argument("--runs", type=int, default=3)
     args = parser.parse_args()
     import torch
 
     if not torch.cuda.is_available():
         print("torch_knn_profile: no CUDA device", file=sys.stderr)
         return 2
-    sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
+    sys.path[:0] = [str(args.src.resolve()), str(ROOT)]
     import chip_smoke
     from repro_torch.apps import knn
     from repro_torch.data.synthetic import make_mfeat_like
@@ -106,7 +113,8 @@ def main() -> int:
     for fn in jobs.values():          # warm-up: build, load, first launches
         fn()
     result = {"device": smi, "torch": torch.__version__,
-              "jobs": {name: profile_job(torch, fn)
+              "src": str(args.src),
+              "jobs": {name: profile_job(torch, fn, args.runs)
                        for name, fn in jobs.items()}}
     line = json.dumps(result)
     if args.out is not None:
