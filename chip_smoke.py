@@ -21,14 +21,18 @@ What it does, in order:
      ``run_accurateml`` at compression 100 with eps_max 0 and 0.01, and one
      ``accurateml_map(..., with_bound=True)`` batch through
      ``MapReduce(mesh=None)`` with the all-gather merge + vote combine;
+     every ``run_accurateml`` job must make one ``lsh_hash`` launch a shard
+     (the LSH step's bucket ids, the kernel's ids epilogue), as must the CF
+     path's;
    * user-based CF (the Netflix subset: 48,019 neighbourhood users x 17,700
      items, density 0.012; 1024 active users; 8 map shards): ``run_exact``,
      ``run_sampled`` at the equal-work fraction 1/20 + 0.05,
      ``run_accurateml`` at compression 20 with eps_max 0 and 0.05, each
      cold and once warm, and one ``accurateml_map(..., with_bound=True)``
      batch through ``MapReduce(mesh=None)`` with the psum combine;
-   * the LSH hash phase: ``ops.lsh_hash`` on both paths' hash inputs (kNN
-     shard 0's rows, CF shard 0's centred profiles);
+   * the LSH hash phase: ``ops.lsh_hash`` (the kernel's raw hashes) on
+     both paths' hash inputs (kNN shard 0's rows, CF shard 0's centred
+     profiles);
    * aggregated-KV LM decode: qwen3-8b at full width and depth (36 layers,
      d_model 4096, 32 query over 8 KV heads of 128, d_ff 12,288, vocab
      151,936 padded to 152,064, bf16, random weights from seed 0) served by
@@ -70,10 +74,12 @@ neighbour in the plain ranking (the (k+1)-th included) within that
 tolerance; each one is counted and the first few are named.  CF weights and
 sums agree within rtol 2e-4 plus atol 2e-4, the JAX package's CF kernel
 tolerance.  LSH hashes may differ by one on under 0.1 % of entries, where a
-projection lies on a bucket border (the JAX package's own rule).  The
-full-scale CF answers: under 0.1 % of the predictions more than half a star
-outside [1, 5]; every RMSE at least the ratings' noise (0.5) and below that
-of predicting each user's mean; the approximate jobs' RMSE loss under 6 %.
+projection lies on a bucket border (the JAX package's own rule); bucket ids
+agree on every row whose hashes all agree, and under 0.1 % of rows have a
+flipped hash.  The full-scale CF answers: under 0.1 % of the predictions
+more than half a star outside [1, 5]; every RMSE at least the ratings'
+noise (0.5) and below that of predicting each user's mean; the approximate
+jobs' RMSE loss under 6 %.
 The decode-attention kernels agree with their plain versions within rtol
 2e-5 plus atol 2e-5 (the JAX package's attention tolerance), in f32 on the
 same cache values, bf16 or f32; the LM's tokens on the card equal those on
@@ -151,8 +157,8 @@ ATTN_TOL = 2e-5               # tests/test_kernels.py:108
 LM_CPU_TOL = 2e-5             # card vs CPU, smoke config, f32
 
 KNN_KERNELS = ("distance_topk", "candidate_topk", "knn_distance",
-               "refine_distances")
-CF_KERNELS = ("cf_weights", "cf_refine")
+               "refine_distances", "lsh_hash")
+CF_KERNELS = ("cf_weights", "cf_refine", "lsh_hash")
 LSH_KERNELS = ("lsh_hash",)
 LM_KERNELS = {"bucket_major": ("distance_topk", "agg_refine_attention"),
               "flat": ("distance_topk", "aggregated_attention")}
@@ -302,10 +308,13 @@ def work(torch, op, args, kwargs):
         return (4.0 * n_valid * d,
                 4 * nq * d + 4 * rows * d + 4 * nq * nb + nq * nb + 4 * nq * nb)
     if op == "lsh_hash":
+        # the ids epilogue (a ``base`` given) writes one id a row, the raw
+        # one H hashes
         x, a = args[:2]
         n, d = x.shape
         h = a.shape[1]
-        return 2.0 * n * d * h, 4 * (n * d + d * h + h + n * h)
+        out = n if "base" in kwargs else n * h
+        return 2.0 * n * d * h, 4 * (n * d + d * h + h + out)
     if op == "cf_weights":
         # only co-rated items add anything (every term carries both masks):
         # three multiply-adds per co-rated (q, u, item) triple, the squares
@@ -428,15 +437,54 @@ def cf_refine_slice(args, lo, hi):
     return (a[lo:hi], am[lo:hi], r, m, idx[lo:hi], use[lo:hi])
 
 
-def check_kernel(torch, ref, topk_stream, op, wrapper, args, kwargs):
+def kernel_fns(ops, ref, op, kwargs):
+    """(kernel wrapper, plain version) of one captured call: ``lsh_hash``'s
+    ids epilogue (a ``base`` given) has its own pair."""
+    if op == "lsh_hash" and "base" in kwargs:
+        return ops.lsh_bucket_ids_cuda, ref.lsh_bucket_ids
+    return ops.KERNELS[op], getattr(ref, PLAIN.get(op, op))
+
+
+def compare_lsh(torch, ref, raw_kernel, args, kwargs, got, want):
+    """Hashes (got, want: [N, H]) off by at most 1 on under 0.1 % of
+    entries, where a projection lies on a bucket border.  Ids (got, want:
+    [N]) equal on every row whose hashes all equal the plain ones, rows
+    with a flip under 0.1 %; the hashes of an ids call are the raw
+    epilogue's on the same inputs."""
+    if got.dim() == 1:
+        ids_got, ids_want = got, want
+        got, want = raw_kernel(*args), ref.lsh_hash(*args)
+        torch.cuda.synchronize()
+    diff = (got.long() - want.long()).abs()
+    flipped = float((diff > 0).float().mean())
+    if int(diff.max()) > 1 or flipped >= 1e-3:
+        fail(f"lsh_hash: max diff {int(diff.max())}, {flipped:.2e} of "
+             "hashes differ (allowed: 1, under 1e-3)")
+    out = {"max_abs_err": float(diff.max()), "flipped_share": flipped,
+           "label_mismatch": 0, "near_ties": 0, "near_tie_examples": []}
+    if "base" in kwargs:
+        rows = (diff > 0).any(dim=1)
+        share = float(rows.float().mean())
+        off = (ids_got != ids_want) & ~rows
+        if bool(off.any()) or share >= 1e-3:
+            fail(f"lsh_hash ids: {int(off.sum())} rows differ with equal "
+                 f"hashes; {share:.2e} of rows have a flipped hash (allowed: "
+                 "none, under 1e-3)")
+        out.update(flipped_rows=int(rows.sum()),
+                   ids_differ=int((ids_got != ids_want).sum()))
+    return out
+
+
+def check_kernel(torch, ref, topk_stream, ops, op, args, kwargs):
     """Run kernel and plain version on the captured inputs; return the
     comparison summary."""
     big = topk_stream.BIG
     none = {"label_mismatch": 0, "near_ties": 0, "near_tie_examples": []}
     if op == "cf_refine":
         args = cf_refine_slice(args, 0, CF_CHECK_QUERIES)
+    wrapper, plain = kernel_fns(ops, ref, op, kwargs)
     got = wrapper(*args, **kwargs)
-    want = getattr(ref, PLAIN.get(op, op))(*args, **kwargs)
+    want = plain(*args, **kwargs)
     torch.cuda.synchronize()
     if op in ATTN_KERNELS:
         # bf16 caches: the plain version reads the same bf16 values in f32
@@ -452,13 +500,8 @@ def check_kernel(torch, ref, topk_stream, op, wrapper, args, kwargs):
                      f"{float(err.max()):.3e})")
         return {"max_abs_err": max_err, **none}
     if op == "lsh_hash":
-        diff = (got.long() - want.long()).abs()
-        flipped = float((diff > 0).float().mean())
-        if int(diff.max()) > 1 or flipped >= 1e-3:
-            fail(f"lsh_hash: max diff {int(diff.max())}, {flipped:.2e} of "
-                 "hashes differ (allowed: 1, under 1e-3)")
-        return {"max_abs_err": float(diff.max()), "flipped_share": flipped,
-                **none}
+        return compare_lsh(torch, ref, ops.KERNELS[op], args, kwargs, got,
+                           want)
     if op in CF_KERNELS:
         outs = (zip(("w", "num", "den"), got, want) if op == "cf_refine"
                 else [("w", got, want)])
@@ -493,11 +536,11 @@ def check_kernel(torch, ref, topk_stream, op, wrapper, args, kwargs):
             "near_tie_examples": []}
 
 
-def plain_call(ref, op, args, kwargs):
+def plain_call(ops, ref, op, args, kwargs):
     """The plain version on the captured inputs, as one timed function.
     The plain cf_refine runs in slices of CF_CHECK_QUERIES queries, the most
     whose [Q, B, I] gathers fit beside the path's data."""
-    plain = getattr(ref, PLAIN.get(op, op))
+    plain = kernel_fns(ops, ref, op, kwargs)[1]
     if op != "cf_refine":
         return lambda: plain(*args, **kwargs)
     nq = args[0].shape[0]
@@ -1293,6 +1336,7 @@ def _shape(key, args, kwargs) -> str:
     shape = " ".join("x".join(str(d) for d in a.shape) for a in args
                      if hasattr(a, "shape"))
     return shape + (f" k={kwargs['k']}" if "k" in kwargs else "") + (
+        " ids" if "base" in kwargs else "") + (
         f" ({key[0]})" if key[0] else "")
 
 
@@ -1302,7 +1346,9 @@ TOLS = {
     "cf_weights": f"rtol {CF_TOL} + atol {CF_TOL} on the weights",
     "cf_refine": f"rtol {CF_TOL} + atol {CF_TOL} on w, num and den, on the "
                  f"first {CF_CHECK_QUERIES} queries of each call",
-    "lsh_hash": "off by at most 1 on under 0.1 % of hashes",
+    "lsh_hash": "hashes off by at most 1 on under 0.1 % of entries; ids "
+                "equal on every row whose hashes equal the plain ones, rows "
+                "with a flip under 0.1 %",
     **dict.fromkeys(ATTN_KERNELS, f"rtol {ATTN_TOL} + atol {ATTN_TOL} in "
                     "f32 against the plain version on the same (bf16 or "
                     "f32) cache"),
@@ -1314,9 +1360,7 @@ def kernel_row(torch, ref, topk_stream, ops, op, calls, counts, jobs, flush):
     with the largest least time (lsh_hash, cf_weights, distance_topk and
     the decode-attention kernels, whose shapes are different stages or
     paths: at each shape); the row of the ``{"kernels": [...]}`` line."""
-    wrapper = ops.KERNELS[op]
-    summaries = [check_kernel(torch, ref, topk_stream, op, wrapper, args,
-                              kwargs)
+    summaries = [check_kernel(torch, ref, topk_stream, ops, op, args, kwargs)
                  for args, kwargs in calls.values()]
     ranked = sorted(calls.items(),
                     key=lambda c: -bound_ms(*work(torch, op, *c[1]))[0])
@@ -1325,9 +1369,10 @@ def kernel_row(torch, ref, topk_stream, ops, op, calls, counts, jobs, flush):
     for key, (args, kwargs) in ranked if every else ranked[:1]:
         b_ms, b_by = bound_ms(*work(torch, op, args, kwargs))
         lib = library_call(torch, op, args, kwargs)
+        wrapper = kernel_fns(ops, ref, op, kwargs)[0]
         ms, ms_nh = bench_ms(torch, lambda: wrapper(*args, **kwargs), flush)
-        plain, plain_nh = bench_ms(torch, plain_call(ref, op, args, kwargs),
-                                   flush)
+        plain, plain_nh = bench_ms(
+            torch, plain_call(ops, ref, op, args, kwargs), flush)
         lib_ms, lib_nh = bench_ms(torch, lib, flush) if lib else (None, None)
         timed.append({
             "shape": _shape(key, args, kwargs),
@@ -1362,6 +1407,17 @@ def kernel_row(torch, ref, topk_stream, ops, op, calls, counts, jobs, flush):
           f"{top['library_ms']}; without the head start "
           f"{top['no_head_start']}) over {len(summaries)} shapes")
     return row
+
+
+def check_lsh_jobs(jobs):
+    """The LSH step runs on the kernel: one launch a shard in every
+    run_accurateml job, none in the jobs that build no aggregates (the
+    with_bound batch's are built before it is timed)."""
+    for name, job in jobs.items():
+        want = N_SHARDS if "run_accurateml" in name else 0
+        if job["launches"]["lsh_hash"] != want:
+            fail(f"{name}: {job['launches']['lsh_hash']} lsh_hash launches, "
+                 f"expected {want}")
 
 
 def check_launched(path, counts, kernels):
@@ -1424,6 +1480,7 @@ def main() -> int:
     print(json.dumps({"jobs": jobs, "accuracy": acc,
                       "shuffle_bytes": shuffle_bytes}))
     check_launched("kNN", counts_knn, KNN_KERNELS)
+    check_lsh_jobs(jobs)
     if acc["run_exact"] < 0.9:
         fail(f"exact accuracy {acc['run_exact']:.4f} < 0.9 on mixture data")
 
@@ -1445,6 +1502,7 @@ def main() -> int:
     print(json.dumps({"cf_jobs": cf_jobs_out, "rmse": rmse,
                       "rmse_loss": loss, "shuffle_bytes": cf_shuffle_bytes}))
     check_launched("CF", counts_cf, CF_KERNELS)
+    check_lsh_jobs(cf_jobs_out)
 
     # ---- LSH hash phase ----
     n_s = train_x.shape[0] // N_SHARDS
@@ -1463,9 +1521,9 @@ def main() -> int:
 
     # ---- every kernel against its plain version ----
     counts = {**counts_knn, **{op: counts_cf[op] for op in CF_KERNELS},
-              **{op: counts_lsh[op] for op in LSH_KERNELS},
               **{op: counts_lm[op] for op in ATTN_KERNELS}}
     counts["distance_topk"] += counts_lm["distance_topk"]
+    counts["lsh_hash"] = counts_knn["lsh_hash"] + counts_cf["lsh_hash"]
     all_jobs = {**jobs, **cf_jobs_out,
                 "lsh phase": {"launches": {op: counts_lsh[op]
                                            for op in LSH_KERNELS}},

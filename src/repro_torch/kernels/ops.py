@@ -7,7 +7,8 @@ CUDA tensor to ``ref``: on the card the plain versions run only when called
 by name (``ref.distance_topk(...)``), to be compared with the kernels.
 
 ``KERNELS`` names each kernel's wrapper; each wrapper counts its launches
-in its ``launches`` attribute.
+in its ``launches`` attribute (``lsh_bucket_ids``, the ``lsh_hash``
+kernel's ids epilogue, counts in ``lsh_hash``'s).
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ from repro_torch.kernels.cf_refine import cf_refine_cuda
 from repro_torch.kernels.cf_weights import cf_weights_cuda
 from repro_torch.kernels.distance_topk import distance_topk_cuda
 from repro_torch.kernels.knn_distance import knn_distance_cuda
-from repro_torch.kernels.lsh_hash import lsh_hash_cuda
+from repro_torch.kernels.lsh_hash import lsh_bucket_ids_cuda, lsh_hash_cuda
 from repro_torch.kernels.refine_distances import refine_distances_cuda
 
 KERNELS = {
@@ -153,6 +154,18 @@ def lsh_hash(data: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     if _on_card(data):
         return lsh_hash_cuda(data, a, b, width)
     return ref.lsh_hash(data, a, b, width)
+
+
+@_probed("lsh_hash")
+def lsh_bucket_ids(data: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                   width: float, *, base: int,
+                   factor: int = 1) -> torch.Tensor:
+    """The p-stable hashes combined into bucket ids ``(sig % base) //
+    factor``, [N] int32: the same kernel, its ids epilogue."""
+    if _on_card(data):
+        return lsh_bucket_ids_cuda(data, a, b, width, base=base,
+                                   factor=factor)
+    return ref.lsh_bucket_ids(data, a, b, width, base=base, factor=factor)
 
 
 @_probed("cf_weights")

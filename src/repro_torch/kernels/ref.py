@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.aggregate import segment_sums
+from repro_torch.core.signature import wrapped_signature
 from repro_torch.kernels.topk_stream import BIG
 
 
@@ -171,6 +172,16 @@ def lsh_hash(data: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     int32."""
     proj = data.float() @ a.float() + b[None, :]
     return torch.floor(proj / width).to(torch.int32)
+
+
+def lsh_bucket_ids(data: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                   width: float, *, base: int,
+                   factor: int = 1) -> torch.Tensor:
+    """Bucket ids ``(sig % base) // factor`` of the p-stable hashes, [N]
+    int32, with ``sig`` their uint32 signature: ``fine_bucket_ids`` (factor
+    1) and ``bucket_ids`` of ``src/repro/core/lsh.py``."""
+    sig = wrapped_signature(lsh_hash(data, a, b, width))
+    return (sig % base).to(torch.int32) // factor
 
 
 def cf_weights(

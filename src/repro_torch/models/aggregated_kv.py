@@ -28,7 +28,7 @@ import math
 
 import torch
 
-from repro_torch.core.lsh import wrapped_signature
+from repro_torch.core.signature import wrapped_signature
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels import ref as kernel_ref
 from repro_torch.kernels.ref import NEG

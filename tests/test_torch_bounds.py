@@ -163,3 +163,14 @@ def test_candidate_topk_yardstick_reads_a_stack_as_one_row():
     got = chip_smoke.library_call(torch, "candidate_topk", args, {"k": 2})()
     flat = torch.cat([seed, d.permute(1, 0, 2).reshape(2, 12)], dim=1)
     assert torch.equal(got.values, flat.sort(dim=1).values[:, :2])
+
+
+@pytest.mark.parametrize("ids", [False, True])
+def test_lsh_hash_writes_one_id_or_h_hashes_a_row(ids):
+    n, d, h = 7, 5, 3
+    x, a, b = torch.zeros((n, d)), torch.zeros((d, h)), torch.zeros(h)
+    flops, nbytes = chip_smoke.work(torch, "lsh_hash", (x, a, b, 4.0),
+                                    {"base": 16, "factor": 2} if ids else {})
+    assert flops == 2 * n * d * h
+    # X, A and b read once; [N] ids (4 N bytes) or [N, H] hashes written
+    assert nbytes == 4 * (n * d + d * h + h) + (4 * n if ids else 4 * n * h)

@@ -132,6 +132,27 @@ def test_nested_bucket_ids_parity(base, n_buckets):
         ids[~border], np.asarray(jlsh.bucket_ids(jx(x), jp))[~border])
 
 
+@pytest.mark.parametrize("h,nest", [(4, None), (1, None), (12, None),
+                                    (4, 4), (12, 16)])
+def test_bucket_ids_cpu_bits_unchanged(h, nest):
+    """On a CPU tensor core/lsh.py goes through ops to the plain versions:
+    the same bits as its own product, floor and int64 signature gave before
+    the LSH step ran on the kernel."""
+    from repro_torch.core.signature import wrapped_signature
+
+    x = th(normal(rng(h + (nest or 0)), 500, 217) * 3)
+    cfg = lsh.LSHConfig(n_hashes=h, bucket_width=4.0, n_buckets=97,
+                        base_buckets=nest and nest * 97)
+    p = lsh.init_lsh(torch.Generator().manual_seed(h), 217, cfg,
+                     device="cpu")
+    raw = torch.floor((x @ p.a + p.b[None, :]) / 4.0).to(torch.int32)
+    fine = (wrapped_signature(raw) % ((nest or 1) * 97)).to(torch.int32)
+    ids = fine if nest is None else fine // nest
+    assert torch.equal(lsh.raw_hashes(x, p), raw)
+    assert torch.equal(lsh.fine_bucket_ids(x, p), fine)
+    assert torch.equal(lsh.bucket_ids(x, p), ids)
+
+
 @pytest.mark.parametrize("kwargs,message", [
     ({"n_buckets": 64, "base_buckets": 32}, "base_buckets=32 < n_buckets=64"),
     ({"n_buckets": 64, "base_buckets": 96}, "divide"),

@@ -27,7 +27,7 @@ from repro_torch.kernels.cf_refine import cf_refine_cuda
 from repro_torch.kernels.cf_weights import cf_weights_cuda
 from repro_torch.kernels.distance_topk import SMALL_MAX_N, distance_topk_cuda
 from repro_torch.kernels.knn_distance import knn_distance_cuda
-from repro_torch.kernels.lsh_hash import lsh_hash_cuda
+from repro_torch.kernels.lsh_hash import lsh_bucket_ids_cuda, lsh_hash_cuda
 from repro_torch.kernels.refine_distances import refine_distances_cuda
 from repro_torch.kernels.topk_stream import MAX_K
 
@@ -437,6 +437,102 @@ def test_cuda_lsh_hash(cuda, n, d, h):
     assert int(diff.max()) <= 1 and float((diff > 0).float().mean()) < 1e-3
 
 
+def _lsh_case(dev, n, d, h, offset=0, scale=1.0):
+    """[n, d] data starting ``offset`` floats into its buffer (an unaligned
+    start for offsets 1-3), [d, h] projections, [h] offsets in [0, 4)."""
+    r = rng(n + d + h + offset)
+    buf = th(normal(r, n * d + offset) * scale).to(dev)
+    x = buf[offset:].view(n, d)
+    a, b = _on(dev, normal(r, d, h), (r.random(h) * 4.0).astype(np.float32))
+    return x, a, b
+
+
+def _check_lsh_epilogues(x, a, b, base, factor):
+    """Both epilogues against the plain versions, a launch each: hashes off
+    by at most one on under 0.1 % of entries (floor() at a bucket border);
+    ids equal on every row whose hashes all equal the plain ones, and rows
+    with a flip under 0.1 %."""
+    before = lsh_hash_cuda.launches
+    got = ops.lsh_hash(x, a, b, 4.0)
+    ids = ops.lsh_bucket_ids(x, a, b, 4.0, base=base, factor=factor)
+    assert lsh_hash_cuda.launches == before + 2
+    assert got.shape == (x.shape[0], a.shape[1]) and got.dtype == torch.int32
+    assert ids.shape == (x.shape[0],) and ids.dtype == torch.int32
+    diff = (got.long() - ref.lsh_hash(x, a, b, 4.0).long()).abs()
+    assert int(diff.max()) <= 1 and float((diff > 0).float().mean()) < 1e-3
+    flipped = (diff > 0).any(dim=1)
+    assert float(flipped.float().mean()) < 1e-3
+    want = ref.lsh_bucket_ids(x, a, b, 4.0, base=base, factor=factor)
+    assert torch.equal(ids[~flipped], want[~flipped])
+    assert bool(((ids >= 0) & (ids < -(-base // factor))).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,h,offset", [
+    (64, 16, 4, 0), (200, 217, 6, 0), (33, 8, 1, 0), (40_000, 217, 4, 0),
+    (300, 17_700, 4, 0), (500, 3000, 8, 0),
+    # shards that start at any row of a [N, 217] tensor: unaligned starts
+    (40_000, 217, 4, 1), (40_000, 217, 4, 2), (40_000, 217, 4, 3),
+    (777, 217, 4, 1), (6002, 17_700, 4, 3),
+    # one row; rows not a multiple of the 64-row tile
+    (1, 217, 4, 0), (1, 17_700, 4, 1), (9_001, 217, 4, 0),
+    # 1, 8 and 12 hashes (12: every signature prime)
+    (9_000, 217, 1, 0), (9_000, 217, 8, 2), (9_000, 217, 12, 1),
+    (500, 17_700, 12, 0), (2000, 2000, 12, 0), (300, 5, 12, 3),
+])
+def test_cuda_lsh_epilogues(cuda, n, d, h, offset):
+    x, a, b = _lsh_case(cuda, n, d, h, offset, scale=3.0)
+    _check_lsh_epilogues(x, a, b, base=1009, factor=1)
+    # nested: 16 x 1009 fine ids, each coarse id a run of 16 of them
+    _check_lsh_epilogues(x, a, b, base=16 * 1009, factor=16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,h,offset", [(287_500, 217, 4, 0),
+                                          (20_000, 217, 4, 3),
+                                          (6002, 17_700, 4, 0),
+                                          (1000, 17_700, 12, 1)])
+def test_cuda_lsh_gives_the_same_bits_twice(cuda, n, d, h, offset):
+    x, a, b = _lsh_case(cuda, n, d, h, offset)
+    for run in (lambda: lsh_hash_cuda(x, a, b, 4.0),
+                lambda: lsh_bucket_ids_cuda(x, a, b, 4.0, base=2875)):
+        assert torch.equal(run(), run())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("base_buckets", [None, 4 * 97])
+def test_cuda_bucket_ids_launch_lsh_hash_once(cuda, base_buckets):
+    """core/lsh.py on a CUDA tensor: one launch of the kernel for
+    bucket_ids, fine_bucket_ids and raw_hashes each, and no other path."""
+    from repro_torch.core import lsh
+
+    x, _, _ = _lsh_case(cuda, 5000, 217, 4)
+    cfg = lsh.LSHConfig(n_hashes=4, bucket_width=4.0, n_buckets=97,
+                        base_buckets=base_buckets)
+    params = lsh.init_lsh(torch.Generator().manual_seed(3), 217, cfg,
+                          device=cuda)
+    for fn, plain in (
+        (lsh.bucket_ids, lambda: ref.lsh_bucket_ids(
+            x, params.a, params.b, 4.0, base=base_buckets or 97,
+            factor=(base_buckets or 97) // 97)),
+        (lsh.fine_bucket_ids, lambda: ref.lsh_bucket_ids(
+            x, params.a, params.b, 4.0, base=base_buckets or 97)),
+        (lsh.raw_hashes, lambda: ref.lsh_hash(x, params.a, params.b, 4.0)),
+    ):
+        before = lsh_hash_cuda.launches
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            got = fn(x, params)
+            torch.cuda.synchronize()
+        assert lsh_hash_cuda.launches == before + 1
+        kernels = {e.key for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA}
+        assert kernels and all("lsh_kernel" in k for k in kernels), kernels
+        assert got.device == x.device
+        agree = float((got == plain()).float().mean())
+        assert agree > 0.999, fn.__name__
+
+
 @pytest.mark.cuda
 def test_cuda_kernels_refuse_what_they_do_not_take(cuda):
     r = rng(0)
@@ -449,7 +545,10 @@ def test_cuda_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="on cpu"):
         ops.knn_distance(qs, ps.cpu())
     with pytest.raises(ValueError, match="hashes"):
-        ops.lsh_hash(qs, normal_on(cuda, 8, 9), normal_on(cuda, 9), 4.0)
+        ops.lsh_hash(qs, normal_on(cuda, 8, 13), normal_on(cuda, 13), 4.0)
+    with pytest.raises(ValueError, match="base"):
+        ops.lsh_bucket_ids(qs, normal_on(cuda, 8, 4), normal_on(cuda, 4), 4.0,
+                           base=0)
     a, am, u, um = _on(cuda, *cf_inputs(0, 4, 10, 8))
     idx = torch.zeros((4, 3), dtype=torch.int64, device=cuda)
     use = torch.ones((4, 3), dtype=torch.bool, device=cuda)

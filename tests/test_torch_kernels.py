@@ -475,6 +475,42 @@ def test_lsh_hash_is_raw_hashes():
                        lsh.raw_hashes(th(x), p))
 
 
+@pytest.mark.parametrize("nest", [None, 4, 16])
+@pytest.mark.parametrize("h", [1, 4, 8, 12])
+def test_lsh_bucket_ids_parity(h, nest):
+    """ref.lsh_bucket_ids (the kernel's ids epilogue) on the reference's
+    drawn projections equals the JAX package's bucket_ids and
+    fine_bucket_ids, flat and nested (base 4 and 16 x n_buckets).  Inputs
+    scaled so that hashes go negative and the uint32 signature wraps."""
+    from repro.core import lsh as jlsh
+
+    n, d, k = 600, 24, 97
+    x = normal(rng(h * 31 + (nest or 1)), n, d) * 40
+    cfg = (jlsh.LSHConfig(n_hashes=h, bucket_width=4.0, n_buckets=k)
+           if nest is None else jlsh.nested_config(nest * k, k, n_hashes=h))
+    jp = jlsh.init_lsh(jax.random.PRNGKey(h + 7 * (nest or 1)), d, cfg)
+    a, b = np.asarray(jp.a), np.asarray(jp.b)
+    base = nest * k if nest else k
+    raw = np_of(ref.lsh_hash(th(x), th(a), th(b), 4.0)).astype(np.int64)
+    assert (raw < 0).any() and (raw > 0).any()
+    primes = np.array(jlsh._SIGNATURE_PRIMES[:h], np.uint64)
+    assert ((raw.astype(np.uint32).astype(np.uint64) * primes).sum(1)
+            >= 2**32).any()                   # the signature wraps
+    # rows whose projection lies within 1e-4 of a bucket border, where
+    # float32 sums in another order may flip floor(): 0 or 1 of the 600
+    # rows at these draws (1 at H 1 nested 4x, H 8 and 12 flat and 16x)
+    proj = (x.astype(np.float64) @ a + b) / 4.0
+    border = (np.abs(proj - np.round(proj)) < 1e-4).any(axis=1)
+    assert border.sum() <= 1
+    for factor, want in ((1, jlsh.fine_bucket_ids(jx(x), jp)),
+                         (base // k, jlsh.bucket_ids(jx(x), jp))):
+        got = np_of(ref.lsh_bucket_ids(th(x), th(a), th(b), 4.0, base=base,
+                                       factor=factor))
+        assert got.dtype == np.int32
+        np.testing.assert_array_equal(got[~border],
+                                      np.asarray(want)[~border])
+
+
 # ---------------------------------------------------------------------------
 # dispatch: CPU tensors to the plain versions, never a CUDA kernel; the
 # kernels' wrappers refuse a CPU tensor instead of computing on it
@@ -496,6 +532,8 @@ def _small_args():
                            {"k": 3}),
         "refine_distances": ((qs, ps, idx, valid), {}),
         "lsh_hash": ((qs, th(normal(r, 8, 3)), b, 4.0), {}),
+        "lsh_bucket_ids": ((qs, th(normal(r, 8, 3)), b, 4.0),
+                           {"base": 64, "factor": 4}),
         "cf_weights": ((a, am, u, um), {}),
         "cf_refine": ((a, am, u, um, idx, valid), {"shrink": 8.0}),
     }
@@ -521,6 +559,14 @@ def test_kernel_wrappers_refuse_cpu_tensors(name):
     with pytest.raises(ValueError, match="CUDA"):
         ops.KERNELS[name](*args, **kwargs)
     assert ops.launch_counts()[name] == 0
+
+
+def test_lsh_bucket_ids_wrapper_refuses_cpu_tensors():
+    args, kwargs = _small_args()["lsh_bucket_ids"]
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.lsh_bucket_ids_cuda(*args, **kwargs)
+    assert ops.launch_counts()["lsh_hash"] == 0
 
 
 @pytest.mark.parametrize("k", [0, 33])
@@ -552,7 +598,9 @@ def test_probe_sees_every_op_call():
             getattr(ops, name)(*args, **kwargs)
     finally:
         ops.set_probe(None)
-    assert rec.ops == list(_small_args())
+    # the ids epilogue is the lsh_hash kernel: probed under its name
+    assert rec.ops == [{"lsh_bucket_ids": "lsh_hash"}.get(n, n)
+                       for n in _small_args()]
     assert ops.get_probe() is None
 
 

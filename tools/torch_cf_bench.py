@@ -85,7 +85,7 @@ def main() -> int:
     from repro_torch.apps import cf
     from repro_torch.core import lsh, refine
     from repro_torch.data.synthetic import holdout_split, make_netflix_like
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, ref
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
@@ -118,8 +118,8 @@ def main() -> int:
 
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
     for op in cs.CF_KERNELS:
-        wrapper = ops.KERNELS[op]
         for key, (call_args, kwargs) in probe.calls[op].items():
+            wrapper = cs.kernel_fns(ops, ref, op, kwargs)[0]
             name = f"{op} {cs._shape(key, call_args, kwargs)}"
             out[name], out[f"{name} no head start"] = cs.bench_ms(
                 torch, lambda: wrapper(*call_args, **kwargs), flush)

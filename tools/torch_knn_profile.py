@@ -14,9 +14,15 @@ up, then for each job:
   compare medians of many runs);
 - one more run under ``torch.profiler`` with CPU and CUDA activity: the
   device time summed over every kernel and copy (``device_ms``), the idle
-  share of the card over that run (1 - device / wall), and the device time
-  of the ten costliest operations by name, with the four ported kernels'
+  share of the card over that run (1 - device / wall), the number of
+  kernels and copies the card ran (``device_launches``), and the device
+  time of the ten costliest operations by name, with the ported kernels'
   share.
+
+and ``lsh_step``: ``run_accurateml``'s LSH step alone, ``core.lsh.bucket_ids``
+on each of the 8 shards with the job's own draws (seed 1, in shard order),
+once warm and once under the profiler: its device ms and its number of
+kernels and copies a job.
 
 Prints one JSON line with the results and the card's name and power limit,
 and writes the same object to ``--out`` when given.  ``--src`` is the
@@ -35,9 +41,10 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-# Names of the four kNN kernels' launches, as the profiler lists them
+# Names of the kNN path's kernels' launches, as the profiler lists them
 # (refine_distances makes refine_mark_kernel, refine_plan_kernel, ...).
-PORTED = ("distance_topk", "candidate_topk", "knn_distance", "refine_")
+PORTED = ("distance_topk", "candidate_topk", "knn_distance", "refine_",
+          "lsh_kernel")
 
 
 def _device_us(evt) -> float:
@@ -53,14 +60,9 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def profile_job(torch, fn, runs: int) -> dict:
-    times = []
-    for _ in range(runs):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
+def _profiled(torch, fn):
+    """(wall ms, [(name, device ms)], device launches) of one call of fn
+    under torch.profiler."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -69,8 +71,42 @@ def profile_job(torch, fn, runs: int) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    ops = sorted(((e.key, _device_us(e) / 1e3) for e in prof.key_averages()
-                  if _device_us(e) > 0), key=lambda kv: -kv[1])
+    events = [e for e in prof.key_averages() if _device_us(e) > 0]
+    ops = sorted(((e.key, _device_us(e) / 1e3) for e in events),
+                 key=lambda kv: -kv[1])
+    return wall_ms, ops, sum(e.count for e in events)
+
+
+def lsh_step(torch, knn, lsh, tx, n_shards, ratio) -> dict:
+    """run_accurateml's LSH step alone: bucket_ids of every shard with the
+    job's draws (seed 1, in shard order), warm, then profiled."""
+    gen = torch.Generator("cuda").manual_seed(1)
+    calls = []
+    for sl in knn._shard_slices(tx.shape[0], n_shards):
+        sx = tx[sl]
+        cfg = lsh.config_for_compression(sx.shape[0], ratio)
+        calls.append((sx, lsh.init_lsh(gen, sx.shape[1], cfg)))
+
+    def step():
+        for sx, params in calls:
+            lsh.bucket_ids(sx, params)
+
+    step()
+    _, ops, launches = _profiled(torch, step)
+    return {"device_ms": sum(ms for _, ms in ops),
+            "device_launches": launches,
+            "top_ops_device_ms": [[name[:80], ms] for name, ms in ops[:5]]}
+
+
+def profile_job(torch, fn, runs: int) -> dict:
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    wall_ms, ops, launches = _profiled(torch, fn)
     device_ms = sum(ms for _, ms in ops)
     ported_ms = sum(ms for name, ms in ops
                     if any(p in name for p in PORTED))
@@ -81,6 +117,7 @@ def profile_job(torch, fn, runs: int) -> dict:
         "device_ms": device_ms if device_ms > 0 else "not measured",
         "idle_share": (1.0 - device_ms / wall_ms) if device_ms > 0
         else "not measured",
+        "device_launches": launches,
         "ported_kernels_ms": ported_ms,
         "top_ops_device_ms": [[name[:80], ms] for name, ms in ops[:10]],
     }
@@ -100,6 +137,7 @@ def main() -> int:
     sys.path[:0] = [str(args.src.resolve()), str(ROOT)]
     import chip_smoke
     from repro_torch.apps import knn
+    from repro_torch.core import lsh
     from repro_torch.data.synthetic import make_mfeat_like
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -115,7 +153,9 @@ def main() -> int:
     result = {"device": smi, "torch": torch.__version__,
               "src": str(args.src),
               "jobs": {name: profile_job(torch, fn, args.runs)
-                       for name, fn in jobs.items()}}
+                       for name, fn in jobs.items()},
+              "lsh_step": lsh_step(torch, knn, lsh, tx, chip_smoke.N_SHARDS,
+                                   chip_smoke.RATIO)}
     line = json.dumps(result)
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
