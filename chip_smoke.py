@@ -33,6 +33,27 @@ What it does, in order:
    * the LSH hash phase: ``ops.lsh_hash`` (the kernel's raw hashes) on
      both paths' hash inputs (kNN shard 0's rows, CF shard 0's centred
      profiles);
+   * the aggregate store (``repro_torch.store``) and the servables that
+     read it, at the same sizes: a ``KNNServable`` per kNN shard (287,500 x
+     217, ``PyramidSpec.for_points``: 131,072 base buckets over 9 levels,
+     k 5, 4 hashes of width 4) sharing one ``AggregateStore``: ``get(100)``
+     built (2,048 buckets), the 1024 queries answered at eps 0 and 0.01
+     and the shards folded with ``merge_topk`` and ``majority_vote``,
+     ``get(400)`` and ``get(25)`` merged, the store saved to a temporary
+     directory and restored into a fresh store whose ``get(100)`` is
+     restored; a ``CFServable`` per CF shard (2,048 base buckets):
+     ``get(20)`` built, ``run`` at eps 0.05, ``get(80)`` and ``get(40)``
+     merged; a ``StreamingAggregate`` re-ingesting kNN shard 0 in 16 uneven
+     appends of 4,096-row chunks, adopted into a pyramid whose ``get(100)``
+     is merged.  Checked, with the counts taken: merged levels equal cold
+     builds to the bit (kNN at 400 and 25, CF at 80 and 40), the restored
+     levels equal the built ones and answer alike, the streamed counts and
+     index equal a cold build and its sums agree within rtol 1e-4 + atol
+     1e-4, its answers equal the cold level's but at counted near-ties, at
+     a full budget (shard 0, 128 queries) the store-backed labels equal
+     ``exact_map``'s but at near-ties, and the CF fold's RMSE passes the CF
+     path's checks; it must launch lsh_hash, distance_topk, knn_distance,
+     refine_distances, candidate_topk, cf_weights and cf_refine;
    * aggregated-KV LM decode: qwen3-8b at full width and depth (36 layers,
      d_model 4096, 32 query over 8 KV heads of 128, d_ff 12,288, vocab
      151,936 padded to 152,064, bf16, random weights from seed 0) served by
@@ -140,6 +161,21 @@ PRED_OUT_SHARE = 1e-3
 RMSE_FLOOR = 0.5
 RMSE_LOSS_MAX = 0.06
 
+# The aggregate store phase: one servable per shard of each job, sharing one
+# AggregateStore per job, each pyramid PyramidSpec.for_points(shard) (kNN:
+# 131,072 base buckets over 9 levels; CF: 2,048).  The first ratio is built,
+# the next merged; the merged levels are held against cold builds at two
+# ratios each.  StreamingAggregate re-ingests kNN shard 0 in STREAM_BATCHES
+# uneven appends of chunks of STREAM_CHUNK rows.  At a full budget
+# (EXACT_QUERIES of shard 0's queries, [128, 287,500] refine slots, well
+# under refine_distances' int32 limit) the store-backed answer is exact kNN.
+STORE_RATIOS = (100.0, 400.0, 25.0)
+CF_STORE_RATIOS = (20.0, 80.0, 40.0)
+STORE_SEED = 30
+STREAM_CHUNK = 4096
+STREAM_BATCHES = 16
+EXACT_QUERIES = 128
+
 # Aggregated-KV LM decode: qwen3-8b at full width and depth in bf16,
 # benchmarks/decode_bench.py's sweep, served by DecodeEngine with four slots.
 LM_ARCH = "qwen3-8b"
@@ -160,6 +196,9 @@ KNN_KERNELS = ("distance_topk", "candidate_topk", "knn_distance",
                "refine_distances", "lsh_hash")
 CF_KERNELS = ("cf_weights", "cf_refine", "lsh_hash")
 LSH_KERNELS = ("lsh_hash",)
+STORE_KERNELS = ("lsh_hash", "distance_topk", "knn_distance",
+                 "refine_distances", "candidate_topk", "cf_weights",
+                 "cf_refine")
 LM_KERNELS = {"bucket_major": ("distance_topk", "agg_refine_attention"),
               "flat": ("distance_topk", "aggregated_attention")}
 ATTN_KERNELS = ("agg_refine_attention", "aggregated_attention")
@@ -869,6 +908,377 @@ def lsh_phase(torch, ref, lsh, ops, probe, knn_rows, cf_ratings, cf_mask):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# the aggregate store: pyramids, snapshot, streaming ingest, the servables
+# ---------------------------------------------------------------------------
+
+def _ms_since(torch, t0) -> float:
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _same_level(torch, what, got, want, fields):
+    """Two prepared levels give the same bits in every named field."""
+    for f in fields:
+        x, y = got, want
+        for part in f.split("."):
+            x, y = getattr(x, part), getattr(y, part)
+        if x.dtype != y.dtype or not torch.equal(x, y):
+            fail(f"store: {what}: {f} differs")
+
+
+KNN_LEVEL_FIELDS = ("agg.counts", "agg.means", "agg.perm", "agg.offsets",
+                    "agg.bucket_of", "bucket_labels", "spread", "dispersion")
+CF_LEVEL_FIELDS = ("profile", "profile_mask", "s", "c", "cvar", "agg.counts",
+                   "agg.perm", "agg.offsets")
+
+
+def _knn_answer(torch, knn, servables, prepared, queries, budget):
+    """Each shard's servable answers the batch; the shards fold through
+    merge_topk and majority_vote, as the job does.  -> (per-shard outputs,
+    [Q] votes)."""
+    outs = [s.run(p, (queries,), refine_budget=budget)
+            for s, p in zip(servables, prepared)]
+    for d, lab, vote, bound in outs:
+        if d.shape != (queries.shape[0], K) or not bool(
+                ((bound >= 0) & (bound <= 1)).all()) or not bool(
+                ((vote >= 0) & (vote < N_CLASSES)).all()):
+            fail("store: a kNN servable answered out of shape or range")
+    d, lab = knn.merge_topk(torch.stack([o[0] for o in outs]),
+                            torch.stack([o[1] for o in outs]), K)
+    return outs, knn.majority_vote(d, lab, N_CLASSES)
+
+
+def _reordered_rows(torch, knn, cold, other, queries, budget):
+    """[Q] bool: queries whose stage-1 ranking over the ``cold`` level may
+    differ over ``other``, a level whose centroids differ from the cold ones
+    in rounding only: two neighbouring buckets, among the ranks the budget
+    reaches (the covered ones and the first one left out), lie closer than
+    twice the query's largest difference of centroid distances between the
+    two levels, so the two levels may refine other buckets."""
+    live = cold.agg.counts[None, :] > 0
+    d0 = knn.pairwise_sq_dists(queries, cold.agg.means)
+    d1 = knn.pairwise_sq_dists(queries, other.agg.means)
+    pert = torch.where(live, (d1 - d0).abs(), 0.0).amax(dim=1)
+    vals, order = torch.sort(torch.where(live, d0, knn.BIG), dim=1,
+                             stable=True)
+    reach = torch.cumsum(cold.agg.counts.long()[order], dim=1) <= budget
+    reach[:, 1:] |= reach[:, :-1].clone()          # one rank past the last
+    close = (vals[:, 1:] - vals[:, :-1]) <= 2 * pert[:, None]
+    return (close & reach[:, 1:] & (vals[:, 1:] < knn.BIG / 2)).any(dim=1)
+
+
+def store_phase(torch, knn, cf, lsh, refine, ops, probe, knn_data, cf_data,
+                cf_rmse_exact):
+    """The store path at the jobs' sizes; returns (summary, launch counts
+    of the path, the checks' numbers).  The path: per kNN shard a
+    KNNServable over one shared AggregateStore (get(100) built, the test
+    queries answered at eps 0 and 0.01 and folded, get(400) and get(25)
+    merged, the store saved and restored into a fresh store whose get(100)
+    is restored), per CF shard a CFServable (get(20) built, run at eps
+    0.05, get(80) and get(40) merged), and a StreamingAggregate over kNN
+    shard 0 adopted into a pyramid whose get(100) is merged.  The checks
+    that follow read back with the kernels' counts already taken."""
+    import tempfile
+
+    from repro_torch.store import (
+        SOURCE_BUILT, SOURCE_MERGED, SOURCE_RESTORED, AggregateStore,
+        StreamingAggregate,
+    )
+
+    t_phase = time.perf_counter()
+    train_x, train_y, test_x, test_y = knn_data
+    nr, nm, a, am, truth, tmask = cf_data
+    dev = train_x.device
+    n_s = train_x.shape[0] // N_SHARDS
+    ms = {}
+
+    def expect(source, want, what):
+        if source != want:
+            fail(f"store: {what} came {source}, expected {want}")
+
+    ops.set_probe(probe)
+    ops.reset_launch_counts()
+
+    # ---- kNN: one servable per shard, one store ----
+    store = AggregateStore()
+    shards = [knn.KNNServable(
+        train_x[sl], train_y[sl], n_classes=N_CLASSES, k=K,
+        lsh_generator=torch.Generator(dev).manual_seed(STORE_SEED + s),
+        store=store, device=dev)
+        for s, sl in enumerate(knn._shard_slices(train_x.shape[0],
+                                                 N_SHARDS))]
+    spec = shards[0].pyramid_spec
+    t0 = time.perf_counter()
+    built = []
+    for s in shards:
+        prepared, source = store.get(s, STORE_RATIOS[0])
+        expect(source, SOURCE_BUILT, f"kNN get({STORE_RATIOS[0]})")
+        built.append(prepared)
+    ms["knn build"] = _ms_since(torch, t0)
+    budgets = (0, refine.eps_to_budget(n_s, EPS_LEVELS[-1]))
+    answers, acc = {}, {}
+    for budget in budgets:
+        t0 = time.perf_counter()
+        answers[budget] = _knn_answer(torch, knn, shards, built, test_x,
+                                      budget)
+        ms[f"knn answer budget {budget}"] = _ms_since(torch, t0)
+        acc[f"store kNN budget {budget}"] = knn.accuracy(answers[budget][1],
+                                                         test_y)
+    merged = {}
+    for ratio in STORE_RATIOS[1:]:
+        t0 = time.perf_counter()
+        for i, s in enumerate(shards):
+            prepared, source = store.get(s, ratio)
+            expect(source, SOURCE_MERGED, f"kNN get({ratio})")
+            if i == 0:
+                merged[ratio] = prepared
+        ms[f"knn merge {ratio:g}"] = _ms_since(torch, t0)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        n_saved = store.save(Path(tmp) / "snap")
+        ms["knn save"] = _ms_since(torch, t0)
+        fresh = AggregateStore()
+        t0 = time.perf_counter()
+        n_restored = fresh.restore(Path(tmp) / "snap", shards)
+        ms["knn restore"] = _ms_since(torch, t0)
+    if n_saved != N_SHARDS or n_restored != N_SHARDS:
+        fail(f"store: saved {n_saved}, restored {n_restored} of {N_SHARDS} "
+             "pyramids")
+    t0 = time.perf_counter()
+    restored = []
+    for s in shards:
+        prepared, source = fresh.get(s, STORE_RATIOS[0])
+        expect(source, SOURCE_RESTORED, "the fresh store's kNN get")
+        restored.append(prepared)
+    ms["knn restored get"] = _ms_since(torch, t0)
+    restored_answer = _knn_answer(torch, knn, shards, restored, test_x,
+                                  budgets[-1])
+
+    # ---- CF: one servable per shard, one store ----
+    cf_store = AggregateStore()
+    cf_shards = [cf.CFServable(
+        nr[sl], nm[sl],
+        lsh_generator=torch.Generator(dev).manual_seed(STORE_SEED + 10 + s),
+        store=cf_store, device=dev)
+        for s, sl in enumerate(cf._shard_slices(nr.shape[0], N_SHARDS))]
+    t0 = time.perf_counter()
+    cf_built = []
+    for s in cf_shards:
+        prepared, source = cf_store.get(s, CF_STORE_RATIOS[0])
+        expect(source, SOURCE_BUILT, f"CF get({CF_STORE_RATIOS[0]})")
+        cf_built.append(prepared)
+    ms["cf build"] = _ms_since(torch, t0)
+    cf_budget = refine.eps_to_budget(cf_shards[0].n_points,
+                                     CF_EPS_LEVELS[-1])
+    t0 = time.perf_counter()
+    cf_out = [s.run(p, (a, am), refine_budget=cf_budget)
+              for s, p in zip(cf_shards, cf_built)]
+    ms["cf answer"] = _ms_since(torch, t0)
+    for pred, bound in cf_out:
+        if not bool(torch.isfinite(pred).all()) or not bool(
+                (torch.isfinite(bound) & (bound >= 0)).all()):
+            fail("store: a CF servable answered non-finite predictions or "
+                 "bounds")
+    cf_merged = {}
+    for ratio in CF_STORE_RATIOS[1:]:
+        t0 = time.perf_counter()
+        for i, s in enumerate(cf_shards):
+            prepared, source = cf_store.get(s, ratio)
+            expect(source, SOURCE_MERGED, f"CF get({ratio})")
+            if i == 0:
+                cf_merged[ratio] = prepared
+        ms[f"cf merge {ratio:g}"] = _ms_since(torch, t0)
+
+    # ---- streaming ingest of kNN shard 0 ----
+    s0 = shards[0]
+    base_params = lsh.LSHParams(
+        a=s0.lsh_a, b=s0.lsh_b,
+        config=lsh.LSHConfig(n_hashes=s0.n_hashes,
+                             bucket_width=s0.bucket_width,
+                             n_buckets=spec.base_buckets))
+    stream = StreamingAggregate(
+        base_params, N_FEATURES, capacity=n_s, chunk=STREAM_CHUNK,
+        extra_shapes={"sumsq": (N_FEATURES,), "label_hist": (N_CLASSES,)},
+        device=dev)
+    cuts = [0, *sorted(torch.randperm(
+        n_s - 1, generator=torch.Generator().manual_seed(STORE_SEED))
+        [:STREAM_BATCHES - 1].add(1).tolist()), n_s]
+    classes = torch.arange(N_CLASSES, device=dev)
+    t0 = time.perf_counter()
+    for lo, hi in zip(cuts[:-1], cuts[1:]):
+        rows = s0.train_x[lo:hi]
+        stream.append(rows, sumsq=rows * rows, label_hist=(
+            s0.train_y[lo:hi, None] == classes).float())
+    ms["stream ingest"] = _ms_since(torch, t0)
+    t0 = time.perf_counter()
+    s_stats, s_index, s_n = stream.level0()
+    ms["stream rebucket"] = _ms_since(torch, t0)
+    streamed = knn.KNNServable(
+        stream.rows(), s0.train_y, n_classes=N_CLASSES, k=K,
+        lsh_params=(s0.lsh_a, s0.lsh_b), device=dev)
+    streamed.store.adopt(streamed, s_stats, s_index)
+    s_prepared, source = streamed.store.get(streamed, STORE_RATIOS[0])
+    expect(source, SOURCE_MERGED, "the streamed pyramid's get")
+    s_answer = {b: streamed.run(s_prepared, (test_x,), refine_budget=b)
+                for b in budgets}
+    counts = ops.launch_counts()
+    ops.set_probe(None)
+
+    summary = {
+        "ms": ms, "accuracy": acc, "store": store.stats(),
+        "cf_store": cf_store.stats(), "restored_store": fresh.stats(),
+        "knn_spec": dataclasses.asdict(spec),
+        "cf_spec": dataclasses.asdict(cf_shards[0].pyramid_spec),
+        "knn_buckets": {r: spec.n_buckets(spec.level_for_ratio(r))
+                        for r in STORE_RATIOS},
+        "cf_buckets": {r: cf_shards[0].pyramid_spec.n_buckets(
+            cf_shards[0].pyramid_spec.level_for_ratio(r))
+            for r in CF_STORE_RATIOS},
+        "stream": {"batches": len(cuts) - 1, "chunk": STREAM_CHUNK,
+                   "chunks": sum(math.ceil((hi - lo) / STREAM_CHUNK)
+                                 for lo, hi in zip(cuts[:-1], cuts[1:]))},
+    }
+
+    # ---- checks (the counts are taken) ----
+    # merged levels against cold builds, to the bit
+    for ratio in STORE_RATIOS[1:]:
+        cold, source = AggregateStore().get(shards[0], ratio)
+        expect(source, SOURCE_BUILT, "a cold kNN get")
+        _same_level(torch, f"kNN merged get({ratio}) vs cold", merged[ratio],
+                    cold, KNN_LEVEL_FIELDS)
+    for ratio in CF_STORE_RATIOS[1:]:
+        cold, source = AggregateStore().get(cf_shards[0], ratio)
+        expect(source, SOURCE_BUILT, "a cold CF get")
+        _same_level(torch, f"CF merged get({ratio}) vs cold",
+                    cf_merged[ratio], cold, CF_LEVEL_FIELDS)
+    # the restored levels and their answers
+    for i, (r, b) in enumerate(zip(restored, built)):
+        _same_level(torch, f"kNN shard {i} restored vs built", r, b,
+                    KNN_LEVEL_FIELDS)
+    built_answer = answers[budgets[-1]]
+    for got, want in zip(restored_answer[0], built_answer[0]):
+        if not all(torch.equal(x, y) for x, y in zip(got, want)):
+            fail("store: answers from the restored levels differ from the "
+                 "built ones")
+    if not torch.equal(restored_answer[1], built_answer[1]):
+        fail("store: votes from the restored levels differ")
+    # streamed state against the cold build of shard 0
+    pyr = store.pyramid(s0)
+    c_stats, c_index = pyr.stats_at(0), pyr.index_at(0)
+    if s_n != n_s:
+        fail(f"store: streamed {s_n} rows of {n_s}")
+    for f in ("perm", "offsets", "bucket_of"):
+        if not torch.equal(getattr(s_index, f), getattr(c_index, f)):
+            fail(f"store: the streamed index's {f} differs from a cold build")
+    if not torch.equal(s_stats["counts"], c_stats["counts"]):
+        fail("store: streamed counts differ from a cold build")
+    sum_err = {}
+    for name in ("sums", "sumsq", "label_hist"):
+        err = (s_stats[name] - c_stats[name]).abs()
+        sum_err[name] = float(err.max())
+        if bool((err > ATOL + RTOL * c_stats[name].abs()).any()):
+            fail(f"store: streamed {name} beyond {RTOL} of a cold build "
+                 f"(max err {sum_err[name]:.3e})")
+    # streamed answers against the cold level's: the streamed centroids
+    # differ in rounding only, so the top-k agree to tolerance and the
+    # labels but at near-ties, at eps 0 on every query and at eps 0.01 on
+    # every query whose refined buckets that rounding cannot change
+    big = knn.BIG
+    cold0 = built[0]
+    stream_check = {"max_abs_err": sum_err}
+    for budget in budgets:
+        reordered = (_reordered_rows(torch, knn, cold0, s_prepared, test_x,
+                                     budget) if budget else
+                     torch.zeros(test_x.shape[0], dtype=torch.bool,
+                                 device=dev))
+        keep = ~reordered
+        got, want = s_answer[budget], answers[budget][0][0]
+        nxt = knn.accurateml_map(s0.train_x, s0.train_y, cold0, test_x,
+                                 k=K + 1, refine_budget=budget)[0][:, K]
+        _, mism, ties, examples, _ = compare_topk(
+            torch, big, got[0][keep], got[1][keep], want[0][keep],
+            want[1][keep], nxt[keep])
+        stream_check[f"budget {budget}"] = {
+            "label_mismatch": mism, "near_ties": ties,
+            "near_tie_examples": examples,
+            "rows_reordered": int(reordered.sum()),
+            "votes_differ": int((got[2] != want[2]).sum()),
+            "votes_differ_not_reordered": int(((got[2] != want[2])
+                                               & keep).sum())}
+    summary["stream_check"] = stream_check
+    # a full budget is exact kNN (every bucket covered)
+    q = test_x[:EXACT_QUERIES]
+    d, lab, vote, _ = s0.run(built[0], (q,), refine_budget=n_s)
+    ed, el = knn.exact_map(s0.train_x, s0.train_y, q, k=K + 1)
+    _, ex_mism, ex_ties, ex_examples, ex_rows = compare_topk(
+        torch, big, d, lab, ed[:, :K], el[:, :K], ed[:, K])
+    ev = knn.majority_vote(ed[:, :K], el[:, :K], N_CLASSES)
+    if bool(((vote != ev) & ~ex_rows).any()):
+        fail("store: full-budget votes differ from exact_map's on rows "
+             "without a near-tie")
+    summary["exact_check"] = {"queries": EXACT_QUERIES, "budget": n_s,
+                              "label_mismatch": ex_mism,
+                              "near_ties": ex_ties,
+                              "near_tie_examples": ex_examples}
+    # CF: the shards' map outputs summed, as the job does, then predicted
+    num = den = 0.0
+    for s, p in zip(cf_shards, cf_built):
+        n_, d_ = cf.accurateml_map(s.ratings, s.mask, p, a, am,
+                                   refine_budget=cf_budget)
+        num, den = num + n_, den + d_
+    pred = cf.predict(num, den, a, am)
+    check_predictions(torch, "store CF fold", pred)
+    rmse = {"cf.run_exact": cf_rmse_exact,
+            "store CF eps 0.05": cf.rmse(pred, truth, tmask)}
+    baseline = cf.rmse(cf.predict(torch.zeros_like(a), torch.zeros_like(a),
+                                  a, am), truth, tmask)
+    check_rmse(cf, rmse, baseline)
+    summary["rmse"] = rmse["store CF eps 0.05"]
+    summary["rmse_loss"] = cf.rmse_loss(cf_rmse_exact, summary["rmse"])
+    if summary["rmse_loss"] >= RMSE_LOSS_MAX:
+        fail(f"store CF: RMSE loss {summary['rmse_loss']:.4f} against exact, "
+             f"not under {RMSE_LOSS_MAX}")
+    summary["cf_shard_rmse"] = [cf.rmse(p, truth, tmask) for p, _ in cf_out]
+    summary["phase_s"] = time.perf_counter() - t_phase
+    return summary, counts
+
+
+def print_store(summary):
+    """The store phase's lines: build, merge, save and restore ms, the
+    stores' stats(), the accuracies, the RMSE and the checks' counts."""
+    n_s = summary["knn_spec"]["n_points"]
+    cf_n_s = summary["cf_spec"]["n_points"]
+    sms = summary["ms"]
+    print(f"store kNN ({N_SHARDS} shards of {n_s} x {N_FEATURES}, base "
+          f"{summary['knn_spec']['base_buckets']} buckets, "
+          f"{summary['knn_spec']['n_levels']} levels): build "
+          f"{sms['knn build']:.1f} ms, merge "
+          + ", ".join(f"{sms[f'knn merge {r:g}']:.1f} ms (get({r:g}))"
+                      for r in STORE_RATIOS[1:])
+          + f", save {sms['knn save']:.1f} ms, restore "
+          f"{sms['knn restore']:.1f} ms (+ {sms['knn restored get']:.1f} ms "
+          "for the restored get)")
+    print(f"store CF ({N_SHARDS} shards of {cf_n_s} x {CF_ITEMS}, base "
+          f"{summary['cf_spec']['base_buckets']} buckets): build "
+          f"{sms['cf build']:.1f} ms, merge "
+          + ", ".join(f"{sms[f'cf merge {r:g}']:.1f} ms (get({r:g}))"
+                      for r in CF_STORE_RATIOS[1:])
+          + f", answer {sms['cf answer']:.1f} ms")
+    print(f"store streaming ({summary['stream']['batches']} appends, "
+          f"{summary['stream']['chunks']} chunks of {STREAM_CHUNK}): "
+          f"ingest {sms['stream ingest']:.1f} ms, rebucket "
+          f"{sms['stream rebucket']:.1f} ms; {summary['stream_check']}")
+    for name in ("store", "cf_store", "restored_store"):
+        print(f"{name} stats(): {summary[name]}")
+    for name, a in summary["accuracy"].items():
+        print(f"accuracy {name}: {a:.4f}")
+    print(f"RMSE store CF eps 0.05: {summary['rmse']:.6f}, RMSE loss "
+          f"vs exact {summary['rmse_loss']:.6f}")
+    print(f"store full budget vs exact_map: {summary['exact_check']}")
+    print(f"store phase: {summary['phase_s']:.1f} s, its checks included")
+
+
 def _to_cuda(dc):
     return type(dc)(**{f.name: getattr(dc, f.name).cuda()
                        for f in dataclasses.fields(dc)})
@@ -1511,6 +1921,15 @@ def main() -> int:
                            cf_data[0][:cf_n_s], cf_data[1][:cf_n_s])
     check_launched("LSH hash", counts_lsh, LSH_KERNELS)
 
+    # ---- the aggregate store and the servables that read it ----
+    store_summary, counts_store = store_phase(
+        torch, knn, cf, lsh, refine, ops, probe,
+        (train_x, train_y, test_x, test_y), cf_data, rmse["cf.run_exact"])
+    print_store(store_summary)
+    print(json.dumps({"store": store_summary}))
+    check_launched("store", counts_store, STORE_KERNELS)
+    torch.cuda.empty_cache()
+
     # ---- aggregated-KV LM decode ----
     lm_probe = CaptureProbe(torch, clone=True)
     lm_jobs = {}
@@ -1524,9 +1943,13 @@ def main() -> int:
               **{op: counts_lm[op] for op in ATTN_KERNELS}}
     counts["distance_topk"] += counts_lm["distance_topk"]
     counts["lsh_hash"] = counts_knn["lsh_hash"] + counts_cf["lsh_hash"]
+    for op in STORE_KERNELS:
+        counts[op] += counts_store[op]
     all_jobs = {**jobs, **cf_jobs_out,
                 "lsh phase": {"launches": {op: counts_lsh[op]
                                            for op in LSH_KERNELS}},
+                "store phase": {"launches": {op: counts_store[op]
+                                             for op in STORE_KERNELS}},
                 **lm_jobs}
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device="cuda")
     rows = [kernel_row(torch, ref, topk_stream, ops, op, probe.calls[op],

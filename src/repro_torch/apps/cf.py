@@ -15,23 +15,29 @@ buckets' surrogate with exact per-user terms.
 The hot loops go through ``kernels.ops``: the CUDA kernels for CUDA
 tensors, the plain versions for CPU tensors.  The products that the JAX
 package leaves to XLA stay ``torch.matmul`` in fp32.  The same functions as
-``src/repro/apps/cf.py`` (its serving adapter and store hooks come with the
-store and serving slices), with the same outputs and dtypes.
+``src/repro/apps/cf.py``, with the same outputs and dtypes, and its serving
+adapter ``CFServable``, whose aggregates come from the aggregate store
+(``cf_mergeable_stats`` / ``cf_assemble``).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+from functools import partial
 
 import torch
 
 from repro_torch.core import aggregate as agg_lib
 from repro_torch.core import correlation as corr_lib
+from repro_torch.core import engine as engine_lib
 from repro_torch.core import lsh as lsh_lib
 from repro_torch.core import refine as refine_lib
 from repro_torch.device import to_device
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels import ref
+from repro_torch.kernels.topk_stream import BIG
+from repro_torch.serve import servable as serve_servable
+from repro_torch.serve.request import ErrorBound
 
 
 def user_means(ratings: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -92,24 +98,19 @@ class CFAggregates:
     cvar: torch.Tensor            # [K,I] centred 2nd moment of ratings (SS)
 
 
-def _build_cf_aggregates(ratings, mask, centred, ids, n_buckets: int):
+def _cf_level(ratings, mask, centred, ids, n_buckets: int):
     """The reference's five segment sums (sr, sr2, s, c and the user
     counts) from one stable sort of the ids and one gather of each summed
-    [U,I] array."""
+    [U,I] array, and the index of that sort: (stats, BucketIndex)."""
     rated = ratings * mask
     order, counts, (sr, sr2, s, c) = agg_lib.segment_sums(
         (rated, rated * ratings, centred, mask), ids, n_buckets)
-    profile = sr / torch.clamp_min(c, 1.0)
-    agg = agg_lib.AggregatedData(
-        means=profile, counts=counts.to(torch.int32),
-        perm=order.to(torch.int32),
-        offsets=agg_lib.bucket_offsets(counts),
-        bucket_of=ids.to(torch.int32),
-    )
-    return CFAggregates(
-        agg=agg, profile=profile, profile_mask=(c > 0).to(ratings.dtype),
-        s=s, c=c, cvar=agg_lib.centered_second_moment(sr, sr2, c),
-    )
+    stats = {"counts": counts.to(torch.int32), "sr": sr, "sr2": sr2, "s": s,
+             "c": c}
+    index = agg_lib.BucketIndex(perm=order.to(torch.int32),
+                                offsets=agg_lib.bucket_offsets(counts),
+                                bucket_of=ids.to(torch.int32))
+    return stats, index
 
 
 def build_cf_aggregates(
@@ -118,8 +119,42 @@ def build_cf_aggregates(
     """LSH-bucket users by centred rating profile; aggregate (§III-B)."""
     centred = ref._centred(ratings, mask)
     ids = lsh_lib.bucket_ids(centred, params)
-    return _build_cf_aggregates(ratings, mask, centred, ids,
-                                params.config.n_buckets)
+    return cf_assemble(*_cf_level(ratings, mask, centred, ids,
+                                  params.config.n_buckets))
+
+
+def cf_mergeable_stats(
+    ratings: torch.Tensor, mask: torch.Tensor, fine_ids: torch.Tensor,
+    n_buckets: int,
+) -> dict[str, torch.Tensor]:
+    """Additive per-bucket statistics for the aggregate store: raw rating
+    sums ``sr``, squared-rating sums ``sr2`` (the second moment behind the
+    error bound), centred sums ``s``, rater counts ``c`` and the int32 user
+    counts, all additive under bucket union."""
+    return _cf_level(ratings, mask, ref._centred(ratings, mask), fine_ids,
+                     n_buckets)[0]
+
+
+def cf_assemble(stats: dict, index: agg_lib.BucketIndex) -> CFAggregates:
+    """Statistics + index -> the prepared aggregates ``accurateml_map``
+    uses.  Without an ``sr2`` entry (a snapshot older than the second
+    moments) the variance is the finite ``BIG``, not inf: cvar feeds a
+    product where 0 x inf would be NaN."""
+    c = stats["c"]
+    profile = stats["sr"] / torch.clamp_min(c, 1.0)
+    agg = agg_lib.AggregatedData(
+        means=profile, counts=stats["counts"], perm=index.perm,
+        offsets=index.offsets, bucket_of=index.bucket_of,
+    )
+    if "sr2" in stats:
+        cvar = agg_lib.centered_second_moment(stats["sr"], stats["sr2"], c)
+    else:
+        cvar = torch.full(c.shape, BIG, dtype=profile.dtype,
+                          device=c.device)
+    return CFAggregates(
+        agg=agg, profile=profile, profile_mask=(c > 0).to(profile.dtype),
+        s=stats["s"], c=c, cvar=cvar,
+    )
 
 
 def accurateml_map(
@@ -306,6 +341,108 @@ def run_sampled(
         n_, d_ = sampled_map(r_, m_, active, active_mask, perm, n_sample=ns)
         num, den = num + n_, den + d_
     return predict(num, den, active, active_mask)
+
+
+# ---------------------------------------------------------------------------
+# serving adapter (the Servable protocol of serve/request.py)
+# ---------------------------------------------------------------------------
+
+class CFServable(serve_servable.LSHServableBase):
+    """CF recommendation behind the ``Servable`` protocol.
+
+    One instance holds one neighbourhood shard (user rows of the rating
+    matrix); the store hashes its users' centred ratings.  Request payload:
+    ``(active_row [I], active_mask_row [I])`` for one active user; answer:
+    the predicted rating row [I] (numpy).  ``run`` executes
+    ``accurateml_map`` through the MapReduce engine with a psum combine
+    into ``predict`` and the ``CF_BOUND_Z`` stderr bound.
+    """
+
+    name = "cf"
+
+    def __init__(
+        self,
+        ratings,
+        mask,
+        *,
+        lsh_generator: torch.Generator | None = None,
+        lsh_params=None,
+        n_hashes: int = 4,
+        bucket_width: float = 8.0,
+        engine: engine_lib.MapReduce | None = None,
+        store=None,
+        pyramid_spec=None,
+        device: str | torch.device = "cuda",
+    ):
+        dev, ratings, mask = to_device(device, ratings, mask)
+        super().__init__(
+            (ratings, mask), device=dev, lsh_generator=lsh_generator,
+            lsh_params=lsh_params, n_hashes=n_hashes,
+            bucket_width=bucket_width, engine=engine, store=store,
+            pyramid_spec=pyramid_spec,
+        )
+        self.ratings = ratings
+        self.mask = mask
+
+    # --- store pyramid hooks ---
+    def hash_features(self) -> torch.Tensor:
+        return ref._centred(self.ratings, self.mask)
+
+    def mergeable_stats(self, fine_ids, n_buckets):
+        return cf_mergeable_stats(self.ratings, self.mask, fine_ids,
+                                  n_buckets)
+
+    def assemble(self, stats, index) -> CFAggregates:
+        return cf_assemble(stats, index)
+
+    def probe_payload(self) -> tuple:
+        return (self.ratings[0], self.mask[0])
+
+    def pad_batch(self, payloads, batch: int) -> tuple:
+        return self.stack_pad(payloads, batch)
+
+    def run(
+        self, prepared: CFAggregates, batch_payload: tuple,
+        *, refine_budget: int,
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """-> (predictions [Q,I], bound [Q] in stars)."""
+        active, active_mask = (self.batch_tensor(x) for x in batch_payload)
+        map_fn = partial(
+            accurateml_map, refine_budget=refine_budget, with_bound=True
+        )
+
+        def reduce_fn(nd):
+            # nd = summed (num, den, varsum): the prediction and the
+            # surrogate stderr are both exact across shards (all additive).
+            pred = predict(nd[0], nd[1], active, active_mask)
+            stderr = torch.where(
+                nd[1] > 1e-8, nd[2].sqrt() / torch.clamp_min(nd[1], 1e-8),
+                0.0)
+            return pred, CF_BOUND_Z * stderr.mean(dim=-1)
+
+        combine = engine_lib.CombineSpec(mode="psum", reduce_fn=reduce_fn)
+        return self.engine.run(
+            map_fn, combine, self.ratings, self.mask,
+            replicated_args=(prepared, active, active_mask),
+        )
+
+    def unpack(self, outputs: tuple, n: int) -> list:
+        return list(outputs[0][:n].cpu().numpy())
+
+    def error_bounds(self, stage1_out, n: int) -> list:
+        """Per-user claimed bound on the mean absolute rating error."""
+        return [
+            ErrorBound(value=float(b), metric="rating_mae",
+                       confidence=CF_BOUND_CONFIDENCE)
+            for b in stage1_out[1][:n].cpu().tolist()
+        ]
+
+    def accuracy_proxy(self, stage1_out, refined_out, n: int) -> list[float]:
+        """Mean absolute rating delta per active user, stage-1 vs refined
+        (0.0 = refinement left the predicted row unchanged)."""
+        s1 = stage1_out[0][:n].cpu().double()
+        s2 = refined_out[0][:n].cpu().double()
+        return [float(v) for v in (s2 - s1).abs().mean(dim=-1)]
 
 
 # ---------------------------------------------------------------------------

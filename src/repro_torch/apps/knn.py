@@ -12,25 +12,33 @@ Each map shard outputs its local top-k (distance, label) per test point and
 the reduce merges the shards' sets into the global top-k, then
 majority-votes.  The hot loops go through ``kernels.ops``: the CUDA kernels
 for CUDA tensors, the plain versions for CPU tensors.  The same functions
-as ``src/repro/apps/knn.py``, with the same outputs and dtypes.
+as ``src/repro/apps/knn.py``, with the same outputs and dtypes, and its
+serving adapter ``KNNServable``, whose aggregates come from the aggregate
+store (``knn_mergeable_stats`` / ``knn_assemble``).
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
+from functools import partial
 
 import torch
 
 from repro_torch.core import aggregate as agg_lib
 from repro_torch.core import correlation as corr_lib
+from repro_torch.core import engine as engine_lib
 from repro_torch.core import lsh as lsh_lib
 from repro_torch.core import refine as refine_lib
 from repro_torch.device import to_device
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.topk_stream import BIG
+from repro_torch.serve import servable as serve_servable
+from repro_torch.serve.request import ErrorBound
 
 # Chebyshev-style slack on the spread/gap displacement probability; see
 # src/repro/apps/knn.py, calibrated by benchmarks/error_bounds.py there.
 KNN_BOUND_SLACK = 1.0
+KNN_BOUND_CONFIDENCE = 0.9
 
 
 # ---------------------------------------------------------------------------
@@ -130,19 +138,63 @@ def label_histogram(
     return hist.reshape(n_buckets, n_classes).float()
 
 
+def _knn_level(train_x, train_y, ids, n_buckets: int, n_classes: int):
+    """The per-bucket counts, feature sums and sums of squares (one stable
+    sort and gather) and label histogram, and the index of that sort:
+    (stats, BucketIndex)."""
+    agg, sums, sumsq = agg_lib.aggregate_with_moments(train_x, ids, n_buckets)
+    stats = {
+        "counts": agg.counts,
+        "sums": sums,
+        "sumsq": sumsq,
+        "label_hist": label_histogram(train_y, ids, n_buckets, n_classes),
+    }
+    index = agg_lib.BucketIndex(perm=agg.perm, offsets=agg.offsets,
+                                bucket_of=agg.bucket_of)
+    return stats, index
+
+
 def build_knn_aggregates(
     train_x: torch.Tensor, train_y: torch.Tensor,
     params: lsh_lib.LSHParams, n_classes: int,
 ) -> KNNAggregates:
     ids = lsh_lib.bucket_ids(train_x, params)
-    n_buckets = params.config.n_buckets
-    agg, sums, sumsq = agg_lib.aggregate_with_moments(train_x, ids, n_buckets)
-    hist = label_histogram(train_y, ids, n_buckets, n_classes)
+    return knn_assemble(*_knn_level(train_x, train_y, ids,
+                                    params.config.n_buckets, n_classes))
+
+
+def knn_mergeable_stats(
+    train_x: torch.Tensor, train_y: torch.Tensor, fine_ids: torch.Tensor,
+    n_buckets: int, n_classes: int,
+) -> dict[str, torch.Tensor]:
+    """Additive per-bucket sufficient statistics for the aggregate store:
+    int32 point counts, feature sums and sums of squares, and the label
+    histogram, all additive under bucket union, so every coarser pyramid
+    level merges exactly."""
+    return _knn_level(train_x, train_y, fine_ids, n_buckets, n_classes)[0]
+
+
+def knn_assemble(stats: dict, index: agg_lib.BucketIndex) -> KNNAggregates:
+    """Statistics + index -> the prepared aggregates ``accurateml_map``
+    uses.  Without a ``sumsq`` entry (a snapshot older than the second
+    moments) the spread is +inf everywhere: maximum uncertainty, never 0.
+    Labels are the histogram's first maximum, as ``jnp.argmax`` picks it."""
+    counts = stats["counts"]
+    means = stats["sums"] / torch.clamp_min(counts[:, None].float(), 1.0)
+    agg = agg_lib.AggregatedData(
+        means=means, counts=counts, perm=index.perm, offsets=index.offsets,
+        bucket_of=index.bucket_of,
+    )
+    if "sumsq" in stats:
+        spread = agg_lib.bucket_spread(stats["sums"], stats["sumsq"], counts)
+    else:
+        spread = torch.full(counts.shape, torch.inf, dtype=torch.float32,
+                            device=counts.device)
     return KNNAggregates(
         agg=agg,
-        bucket_labels=hist.argmax(dim=-1).to(torch.int32),
-        spread=agg_lib.bucket_spread(sums, sumsq, agg.counts),
-        dispersion=agg_lib.histogram_dispersion(hist),
+        bucket_labels=stats["label_hist"].argmax(dim=-1).to(torch.int32),
+        spread=spread,
+        dispersion=agg_lib.histogram_dispersion(stats["label_hist"]),
     )
 
 
@@ -406,6 +458,123 @@ def run_sampled(
         shards_d.append(d)
         shards_l.append(lab)
     return _reduce(shards_d, shards_l, k, n_classes)
+
+
+# ---------------------------------------------------------------------------
+# serving adapter (the Servable protocol of serve/request.py)
+# ---------------------------------------------------------------------------
+
+class KNNServable(serve_servable.LSHServableBase):
+    """kNN classification behind the ``Servable`` protocol.
+
+    One instance holds one training shard.  ``build`` gives the aggregates
+    of a compression ratio from the aggregate store; ``run`` executes
+    ``accurateml_map`` through the MapReduce engine (all_gather combine:
+    merge the shard top-k, majority-vote, the max of the bounds), so
+    ``last_shuffle_bytes`` is metered on the serving path.  Request
+    payload: ``(query_vector [D],)``; answer: the predicted class (int).
+    """
+
+    name = "knn"
+
+    def __init__(
+        self,
+        train_x,
+        train_y,
+        *,
+        n_classes: int,
+        k: int = 5,
+        lsh_generator: torch.Generator | None = None,
+        lsh_params=None,
+        n_hashes: int = 4,
+        bucket_width: float = 4.0,
+        engine: engine_lib.MapReduce | None = None,
+        store=None,
+        pyramid_spec=None,
+        device: str | torch.device = "cuda",
+    ):
+        dev, train_x, train_y = to_device(device, train_x, train_y)
+        super().__init__(
+            (train_x, train_y), device=dev, lsh_generator=lsh_generator,
+            lsh_params=lsh_params, n_hashes=n_hashes,
+            bucket_width=bucket_width, engine=engine, store=store,
+            pyramid_spec=pyramid_spec,
+        )
+        self.train_x = train_x
+        self.train_y = train_y
+        self.n_classes = n_classes
+        self.k = k
+
+    # --- store pyramid hooks ---
+    def hash_features(self) -> torch.Tensor:
+        return self.train_x
+
+    def mergeable_stats(self, fine_ids, n_buckets):
+        return knn_mergeable_stats(
+            self.train_x, self.train_y, fine_ids, n_buckets, self.n_classes
+        )
+
+    def assemble(self, stats, index) -> KNNAggregates:
+        prepared = knn_assemble(stats, index)
+        means = prepared.agg.means.to(self.train_x.dtype)
+        return dataclasses.replace(
+            prepared, agg=dataclasses.replace(prepared.agg, means=means))
+
+    def probe_payload(self) -> tuple:
+        return (self.train_x[0],)
+
+    def pad_batch(self, payloads, batch: int) -> tuple:
+        return self.stack_pad(payloads, batch)
+
+    def run(
+        self, prepared: KNNAggregates, batch_payload: tuple,
+        *, refine_budget: int,
+    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+        """-> (d [Q,k], labels [Q,k], vote [Q], bound [Q])."""
+        test_x = self.batch_tensor(batch_payload[0])
+
+        def reduce_fn(g):
+            # The merged top-k beside the vote (the neighbour sets feed the
+            # stage-1 vs refined accuracy proxy); the bound merges by max:
+            # it must hold for every shard's part of the answer.
+            d, lab = merge_topk(g[0], g[1], self.k)
+            return (d, lab, majority_vote(d, lab, self.n_classes),
+                    g[2].max(dim=0).values)
+
+        map_fn = partial(
+            accurateml_map, k=self.k, refine_budget=refine_budget,
+            with_bound=True,
+        )
+        combine = engine_lib.CombineSpec(mode="all_gather",
+                                         reduce_fn=reduce_fn)
+        return self.engine.run(
+            map_fn, combine, self.train_x, self.train_y,
+            replicated_args=(prepared, test_x),
+        )
+
+    def unpack(self, outputs: tuple, n: int) -> list:
+        return [int(v) for v in outputs[2][:n].cpu().tolist()]
+
+    def error_bounds(self, stage1_out, n: int) -> list:
+        """Per-query claimed bound on label divergence of the stage-1 vote."""
+        return [
+            ErrorBound(value=float(b), metric="label_divergence",
+                       confidence=KNN_BOUND_CONFIDENCE)
+            for b in stage1_out[3][:n].cpu().tolist()
+        ]
+
+    def accuracy_proxy(self, stage1_out, refined_out, n: int) -> list[float]:
+        """1 - (top-k label multiset overlap / k) per query.  Padding slots
+        (distance >= BIG/2) count on neither side; the denominator stays k,
+        so lost neighbours also count as divergence."""
+        d1, l1 = (t[:n].cpu().numpy() for t in stage1_out[:2])
+        d2, l2 = (t[:n].cpu().numpy() for t in refined_out[:2])
+        out = []
+        for i in range(n):
+            c1 = collections.Counter(l1[i][d1[i] < BIG / 2].tolist())
+            c2 = collections.Counter(l2[i][d2[i] < BIG / 2].tolist())
+            out.append(1.0 - sum((c1 & c2).values()) / self.k)
+        return out
 
 
 def accuracy(pred: torch.Tensor, truth: torch.Tensor) -> float:

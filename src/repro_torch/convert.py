@@ -3,7 +3,8 @@
 JAX's PRNG bits cannot be reproduced in torch, so a comparison of the two
 packages draws once on the JAX side and hands the draws over: LSH
 projections for ``run_accurateml(lsh_params=...)``, prepared aggregates
-for ``accurateml_map`` (kNN and CF), a language model's weights
+for ``accurateml_map`` (kNN and CF), an aggregate store's level-0 state
+from a snapshot (``store_level0_from_numpy``), a language model's weights
 (``lm_params_from_numpy``) and its decode caches' per-layer LSH draws
 (``lm_cache_lsh_from_numpy``).  Arrays are copied; dtypes are those the
 port uses (float32 values, int32 indices and counts, the model's dtype for
@@ -16,7 +17,7 @@ import torch
 
 from repro_torch.apps.cf import CFAggregates
 from repro_torch.apps.knn import KNNAggregates
-from repro_torch.core.aggregate import AggregatedData
+from repro_torch.core.aggregate import AggregatedData, BucketIndex
 from repro_torch.core.lsh import LSHConfig, LSHParams
 from repro_torch.device import resolve
 from repro_torch.models import layers
@@ -83,6 +84,28 @@ def cf_aggregates_from_numpy(
         profile_mask=_f32(profile_mask, dev), s=_f32(s, dev),
         c=_f32(c, dev), cvar=_f32(cvar, dev),
     )
+
+
+def store_level0_from_numpy(
+    npz, *, device: str | torch.device = "cuda",
+) -> tuple[dict[str, torch.Tensor], BucketIndex]:
+    """One pyramid's arrays of a ``save_store`` snapshot (an opened ``.npz``
+    or any mapping with its keys: ``stats/<name>``, ``index/perm``,
+    ``index/offsets``, ``index/bucket_of``) -> (level-0 stats, index) for
+    ``knn_assemble`` / ``cf_assemble`` or ``AggregateStore.adopt``.
+    ``counts`` and the index are int32, the other stats float32."""
+    dev = resolve(device)
+    stats = {}
+    for key in npz.keys():
+        if key.startswith("stats/"):
+            name = key[len("stats/"):]
+            stats[name] = (_i32 if name == "counts" else _f32)(npz[key], dev)
+    if "counts" not in stats:
+        raise ValueError("snapshot arrays have no stats/counts")
+    index = BucketIndex(perm=_i32(npz["index/perm"], dev),
+                        offsets=_i32(npz["index/offsets"], dev),
+                        bucket_of=_i32(npz["index/bucket_of"], dev))
+    return stats, index
 
 
 def _layer_trees(tree: dict, cfg, head: str, units: str, tail: str) -> list:

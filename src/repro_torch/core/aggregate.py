@@ -14,6 +14,13 @@ run.  Bucket counts are read off the sorted ids by ``searchsorted``, and
 come from the sort and sum to N by construction), so none of this waits
 for the card.  Label histograms are integer ``bincount``s, exact in any
 order.
+
+The aggregate store's part (``BucketIndex`` and the nested levels) keeps
+the index apart from the statistics: additive per-bucket statistics merge
+to a coarser nested level by a reshape and a sum over consecutive fine
+buckets (``merge_levels``), and the index coarsens in O(K)
+(``coarsen_index``), so a coarse level built directly and one merged from a
+cached finer level are the same arithmetic, to the bit.
 """
 from __future__ import annotations
 
@@ -124,6 +131,106 @@ def segment_sums(
     return order, counts, [_run_sums(v[order], counts) for v in values]
 
 
+def build_aggregates(data: torch.Tensor, params) -> AggregatedData:
+    """LSH-group (``params``: an ``LSHParams``) then aggregate: the full
+    §III-B generation step.  A nested config (``base_buckets`` set) sums at
+    the finest level and merges down, the arithmetic of the aggregate
+    store's coarsened levels."""
+    # Imported here: core.lsh -> kernels.ops -> kernels.ref imports this
+    # module.
+    from repro_torch.core import lsh as lsh_lib
+
+    cfg = params.config
+    fine_ids = lsh_lib.fine_bucket_ids(data, params)
+    if cfg.base_buckets is None or cfg.base_buckets == cfg.n_buckets:
+        return aggregate_by_bucket(data, fine_ids, cfg.n_buckets)
+    return aggregate_nested(data, fine_ids, cfg.base_buckets, cfg.n_buckets)
+
+
+# ---------------------------------------------------------------------------
+# mergeable sufficient statistics (the aggregate store's pyramid)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class BucketIndex:
+    """The paper's §III-B "index file" apart from the statistics: the
+    perm/offsets linking buckets to original points, coarsened in O(K)
+    while the statistics merge in O(K·D)."""
+
+    perm: torch.Tensor       # [N]   original index sorted by fine bucket id
+    offsets: torch.Tensor    # [K+1] bucket start offsets into perm
+    bucket_of: torch.Tensor  # [N]   bucket id of each original point
+
+    @property
+    def n_buckets(self) -> int:
+        return self.offsets.shape[0] - 1
+
+
+def bucket_index(
+    ids: torch.Tensor, n_buckets: int, counts: torch.Tensor | None = None
+) -> BucketIndex:
+    """The perm/offsets index of per-point bucket ids (int32 throughout).
+    ``counts`` may be passed when the caller has them already; the sort
+    that gives ``perm`` is needed either way."""
+    order, sorted_counts = _bucket_order(ids, n_buckets)
+    if counts is None:
+        counts = sorted_counts
+    return BucketIndex(perm=order.to(torch.int32),
+                       offsets=bucket_offsets(counts.long()),
+                       bucket_of=ids.to(torch.int32))
+
+
+def merge_levels(stat: torch.Tensor, factor: int) -> torch.Tensor:
+    """Merge an additive [K, ...] per-bucket statistic to the nested level
+    ``factor`` times coarser: each coarse bucket sums ``factor`` consecutive
+    fine ones (a reshape and a sum, no gather).  The result keeps the
+    input's dtype (a sum of int32 counts would be int64)."""
+    k = stat.shape[0]
+    if k % factor:
+        raise ValueError(f"cannot merge {k} buckets by factor {factor}")
+    merged = stat.reshape((k // factor, factor) + tuple(stat.shape[1:]))
+    return merged.sum(dim=1).to(stat.dtype)
+
+
+def coarsen_index(index: BucketIndex, factor: int) -> BucketIndex:
+    """Re-map a fine ``BucketIndex`` to a coarser nested level in O(K).
+    The perm is unchanged (sorting by fine id also sorts by every coarse id
+    fine // factor); the coarse offsets are every ``factor``-th fine one."""
+    if index.n_buckets % factor:
+        raise ValueError(
+            f"cannot coarsen {index.n_buckets} buckets by factor {factor}"
+        )
+    return BucketIndex(
+        perm=index.perm,
+        offsets=index.offsets[::factor],
+        bucket_of=torch.div(index.bucket_of, factor, rounding_mode="floor"),
+    )
+
+
+def aggregate_nested(
+    data: torch.Tensor, fine_ids: torch.Tensor, base_buckets: int,
+    n_buckets: int,
+) -> AggregatedData:
+    """Hierarchical §III-B generation: segment sums at the finest level,
+    then one merge down; the same arithmetic as the store's coarsened
+    levels."""
+    order, counts_f = _bucket_order(fine_ids, base_buckets)
+    sums_f = _run_sums(data.float()[order], counts_f)
+    factor = base_buckets // n_buckets
+    counts = merge_levels(counts_f.to(torch.int32), factor)
+    sums = merge_levels(sums_f, factor)
+    means = sums / torch.clamp_min(counts[:, None].float(), 1.0)
+    index = coarsen_index(
+        BucketIndex(perm=order.to(torch.int32),
+                    offsets=bucket_offsets(counts_f),
+                    bucket_of=fine_ids.to(torch.int32)),
+        factor)
+    return AggregatedData(
+        means=means.to(data.dtype), counts=counts, perm=index.perm,
+        offsets=index.offsets, bucket_of=index.bucket_of,
+    )
+
+
 # ---------------------------------------------------------------------------
 # second-moment statistics (error bounds).  An empty bucket has unknown
 # content: its spread and dispersion are +inf, never 0 or NaN.
@@ -203,6 +310,16 @@ def refinement_indices(
     if ranking.dim() == 1:
         return idx[0], valid[0]
     return idx, valid
+
+
+def refined_bucket_mask(
+    agg: AggregatedData, ranking: torch.Tensor,
+    n_refined: torch.Tensor | int,
+) -> torch.Tensor:
+    """[K] bool: True for the buckets among the first ``n_refined`` of
+    ``ranking`` (a permutation of the buckets)."""
+    rank_pos = torch.argsort(ranking.long(), stable=True)  # bucket -> rank
+    return rank_pos < n_refined
 
 
 def buckets_fully_covered(

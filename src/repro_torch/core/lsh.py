@@ -79,6 +79,10 @@ def init_lsh(
     return LSHParams(a=a.to(dev), b=b.to(dev), config=config)
 
 
+# The reference's jitted constructor; there is nothing to compile here.
+fit = init_lsh
+
+
 def raw_hashes(data: torch.Tensor, params: LSHParams) -> torch.Tensor:
     """h_j(d) = floor((a_j . d + b_j) / w) for every hash j.  [N, H] int32."""
     return ops.lsh_hash(data.float(), params.a, params.b,
@@ -102,6 +106,20 @@ def bucket_ids(data: torch.Tensor, params: LSHParams) -> torch.Tensor:
     return ops.lsh_bucket_ids(data.float(), params.a, params.b,
                               cfg.bucket_width, base=base,
                               factor=base // cfg.n_buckets)
+
+
+def nested_config(
+    base_buckets: int, n_buckets: int, *, n_hashes: int = 4,
+    bucket_width: float = 4.0,
+) -> LSHConfig:
+    """An ``LSHConfig`` whose ids live in the nested (prefix) id space: the
+    fine id ``sig % base_buckets`` divided by ``base_buckets // n_buckets``,
+    which ``bucket_ids`` takes from the ``lsh_hash`` kernel's ids
+    epilogue."""
+    return LSHConfig(
+        n_hashes=n_hashes, bucket_width=bucket_width, n_buckets=n_buckets,
+        base_buckets=base_buckets,
+    )
 
 
 def config_for_compression(

@@ -10,8 +10,8 @@ The tracer travels in a ``contextvars.ContextVar``: ``use_tracer`` installs
 one around a block and ``current_tracer()`` finds it, so no tracer parameter
 threads through the stack.  The default ``NULL_TRACER`` does nothing.
 This is the part of ``src/repro/obs/trace.py`` that the map/reduce engine
-needs; recorded spans, events, export and rendering come with the
-observability slice.
+and the aggregate store need (spans, already-elapsed spans and events);
+export and rendering come with the observability slice.
 """
 from __future__ import annotations
 
@@ -86,6 +86,14 @@ class NullTracer:
     def span(self, name: str, **attrs: Any) -> _NullSpan:
         return _NULL_SPAN
 
+    def add_span(
+        self, name: str, t_start: float, t_end: float, **attrs: Any
+    ) -> _NullSpan:
+        return _NULL_SPAN
+
+    def event(self, name: str, **attrs: Any) -> _NullSpan:
+        return _NULL_SPAN
+
     def traces(self) -> list:
         return []
 
@@ -119,6 +127,23 @@ class Tracer:
         finally:
             sp.t_end = self.clock()
             self._close(sp)
+
+    def add_span(
+        self, name: str, t_start: float, t_end: float, **attrs: Any
+    ) -> Span:
+        """Record an already-elapsed span from explicit clock values (e.g.
+        queue wait measured from the request's own arrival timestamp)."""
+        sp = self._open(name, t_start)
+        sp.t_end = t_end
+        if attrs:
+            sp.attrs.update(attrs)
+        self._close(sp)
+        return sp
+
+    def event(self, name: str, **attrs: Any) -> Span:
+        """Zero-duration marker at the current clock (store lookups, ...)."""
+        now = self.clock()
+        return self.add_span(name, now, now, **attrs)
 
     def _open(self, name: str, t_start: float) -> Span:
         parent = self._stack[-1] if self._stack else None

@@ -750,3 +750,137 @@ def test_cuda_decode_attention_refuses_what_it_does_not_take(cuda):
     with pytest.raises(TypeError, match="refined"):
         ops.aggregated_attention_decode(*case[:7], case[7].int(),
                                         scale=scale)
+
+
+# ---------------------------------------------------------------------------
+# the aggregate store on the card: merges, ingest and snapshots give the
+# same bits on every run (no float index_add_ or scatter_add_ on the path)
+# ---------------------------------------------------------------------------
+
+def _store_servable(dev, kind, seed=0):
+    from repro_torch.apps.cf import CFServable
+    from repro_torch.apps.knn import KNNServable
+
+    r = rng(seed)
+    gen = torch.Generator().manual_seed(seed + 1)
+    if kind == "knn":
+        x = normal(r, 20_000, 217)
+        y = r.integers(0, 10, 20_000).astype(np.int32)
+        return KNNServable(x, y, n_classes=10, k=5, lsh_generator=gen,
+                           device=dev)
+    stars = r.integers(1, 6, (1_000, 2_000)).astype(np.float32)
+    m = (r.random((1_000, 2_000)) < 0.05).astype(np.float32)
+    return CFServable(stars * m, m, lsh_generator=gen, device=dev)
+
+
+_LEVEL_FIELDS = {
+    "knn": ("bucket_labels", "spread", "dispersion"),
+    "cf": ("profile", "profile_mask", "s", "c", "cvar"),
+}
+
+
+def _level_tensors(kind, prepared):
+    agg = prepared.agg
+    return [agg.means, agg.counts, agg.perm, agg.offsets, agg.bucket_of,
+            *(getattr(prepared, f) for f in _LEVEL_FIELDS[kind])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["knn", "cf"])
+def test_cuda_store_merged_levels_equal_cold_builds_twice(cuda, kind):
+    from repro_torch.store import (
+        SOURCE_BUILT, SOURCE_MERGED, AggregateStore,
+    )
+
+    runs = []
+    for _ in range(2):
+        warm = _store_servable(cuda, kind)
+        spec = warm.pyramid_spec
+        warm.store.get(warm, spec.ratio(0))
+        levels = []
+        for level in (1, 3, spec.n_levels - 1):
+            merged, src = warm.store.get(warm, spec.ratio(level))
+            cold, src_cold = AggregateStore().get(
+                _store_servable(cuda, kind), spec.ratio(level))
+            assert (src, src_cold) == (SOURCE_MERGED, SOURCE_BUILT)
+            for m, c in zip(_level_tensors(kind, merged),
+                            _level_tensors(kind, cold)):
+                assert m.device.type == "cuda" and torch.equal(m, c)
+            levels.append(_level_tensors(kind, merged))
+        runs.append(levels)
+    for one, two in zip(*runs):
+        assert all(torch.equal(a, b) for a, b in zip(one, two))
+
+
+@pytest.mark.cuda
+def test_cuda_streaming_ingest_gives_the_same_bits_twice(cuda):
+    from repro_torch.core import aggregate as agg_lib
+    from repro_torch.core import lsh as lsh_lib
+    from repro_torch.store import StreamingAggregate
+
+    x = th(normal(rng(3), 30_000, 217)).to(cuda)
+    params = lsh_lib.init_lsh(torch.Generator().manual_seed(4), 217,
+                              lsh_lib.LSHConfig(n_buckets=8192), device=cuda)
+    cuts = [0, 1, 4_097, 9_000, 21_000, 30_000]
+    runs = []
+    for _ in range(2):
+        stream = StreamingAggregate(params, 217, capacity=30_000, chunk=4096,
+                                    extra_shapes={"sumsq": (217,)},
+                                    device=cuda)
+        before = lsh_hash_cuda.launches
+        for lo, hi in zip(cuts[:-1], cuts[1:]):
+            stream.append(x[lo:hi], sumsq=x[lo:hi] * x[lo:hi])
+        assert lsh_hash_cuda.launches - before == sum(
+            -(-(hi - lo) // 4096) for lo, hi in zip(cuts[:-1], cuts[1:]))
+        runs.append(stream.level0())
+    (s1, i1, n1), (s2, i2, n2) = runs
+    assert n1 == n2 == 30_000
+    for k in s1:
+        assert torch.equal(s1[k], s2[k]), k
+    ids = lsh_lib.fine_bucket_ids(x, params)
+    cold = agg_lib.bucket_index(ids, 8192)
+    agg, sums, sumsq = agg_lib.aggregate_with_moments(x, ids, 8192)
+    assert torch.equal(s1["counts"], agg.counts)
+    for f in ("perm", "offsets", "bucket_of"):
+        assert torch.equal(getattr(i1, f), getattr(i2, f))
+        assert torch.equal(getattr(i1, f), getattr(cold, f))
+    assert_close(s1["sums"], sums)
+    assert_close(s1["sumsq"], sumsq)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["knn", "cf"])
+def test_cuda_store_save_and_restore_twice(cuda, kind, tmp_path):
+    from repro_torch.store import SOURCE_RESTORED, AggregateStore
+
+    s = _store_servable(cuda, kind)
+    ratio = s.pyramid_spec.ratio(2)
+    built = s.build(ratio)
+    assert s.store.save(tmp_path / "snap") == 1
+    if kind == "knn":
+        batch = (th(normal(rng(9), 64, 217)).to(cuda),)
+    else:
+        batch = (s.ratings[:64], s.mask[:64])
+    want = s.run(built, batch, refine_budget=200)
+    for _ in range(2):
+        fresh = AggregateStore()
+        assert fresh.restore(tmp_path / "snap", [s]) == 1
+        restored, source = fresh.get(s, ratio)
+        assert source == SOURCE_RESTORED
+        for r, b in zip(_level_tensors(kind, restored),
+                        _level_tensors(kind, built)):
+            assert r.device.type == "cuda" and torch.equal(r, b)
+        got = s.run(restored, batch, refine_budget=200)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_cuda_checksum_gives_the_same_number_twice(cuda):
+    from repro_torch.serve.servable import _checksum
+
+    a = th(normal(rng(5), 287_500, 217)).to(cuda)
+    assert _checksum(a) == _checksum(a)
+    assert _checksum(a) == _checksum(a.clone())
+    b = a.clone()
+    b[[0, 1]] = a[[1, 0]]
+    assert _checksum(b) != _checksum(a)

@@ -20,9 +20,11 @@ from repro_torch.configs import get_config
 from repro_torch.convert import (
     cf_aggregates_from_numpy, knn_aggregates_from_numpy,
     lm_cache_lsh_from_numpy, lm_params_from_numpy, lsh_params_from_numpy,
+    store_level0_from_numpy,
 )
 from repro_torch.core import lsh
 from repro_torch.models import model as lm
+from repro_torch.store import StreamingAggregate
 from repro_torch.data.synthetic import (
     holdout_split, make_mfeat_like, make_netflix_like,
 )
@@ -41,7 +43,9 @@ def test_every_module_imports_without_jax_or_the_reference():
     assert "repro_torch.apps.knn" in modules and len(modules) >= 40
     for m in ("apps.cf", "configs.qwen3_8b", "models.aggregated_kv",
               "models.model", "serve.lm.engine", "obs.metrics",
-              "kernels.agg_refine", "kernels.aggregated_attention"):
+              "kernels.agg_refine", "kernels.aggregated_attention",
+              "store", "store.pyramid", "store.store", "store.persist",
+              "store.ingest", "serve.request", "serve.servable"):
         assert f"repro_torch.{m}" in modules
     code = (
         "import importlib, sys\n"
@@ -59,6 +63,29 @@ def test_every_module_imports_without_jax_or_the_reference():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
+
+
+def test_serve_and_store_hold_only_ported_modules():
+    """Every module of the port's ``serve`` and ``store`` packages has its
+    counterpart at the same path in the reference, and importing
+    ``repro_torch.serve`` loads none of them: the serving modules not yet
+    ported are not reached by the package."""
+    ref_root = ROOT / "src" / "repro"
+    for pkg in ("serve", "store"):
+        for path in (PORT / pkg).rglob("*.py"):
+            rel = path.relative_to(PORT)
+            assert (ref_root / rel).exists(), rel
+    code = (
+        "import sys\n"
+        "import repro_torch.serve\n"
+        "print(sorted(m for m in sys.modules\n"
+        "             if m.startswith('repro_torch.')))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "['repro_torch.serve']"
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -150,6 +177,19 @@ def _entry_points():
         "lsh_params_from_numpy": lambda **kw: lsh_params_from_numpy(
             np.zeros((3, 2)), np.zeros(2), n_hashes=2, bucket_width=4.0,
             n_buckets=4, **kw),
+        "KNNServable": lambda **kw: knn.KNNServable(
+            x, y, n_classes=2, k=3, lsh_generator=torch.Generator(),
+            **kw).build(5.0),
+        "CFServable": lambda **kw: cf.CFServable(
+            r, m, lsh_generator=torch.Generator(), **kw).build(5.0),
+        "StreamingAggregate": lambda **kw: tuple(StreamingAggregate(
+            lsh.LSHParams(a=torch.zeros(3, 2), b=torch.zeros(2),
+                          config=cfg), 3, capacity=4,
+            extra_shapes={"h": (2,)}, **kw).live_stats().values()),
+        "store_level0_from_numpy": lambda **kw: store_level0_from_numpy(
+            {"stats/counts": np.zeros(4), "stats/sums": np.zeros((4, 3)),
+             "index/perm": np.arange(20), "index/offsets": np.zeros(5),
+             "index/bucket_of": np.zeros(20)}, **kw),
         "knn_aggregates_from_numpy": lambda **kw: knn_aggregates_from_numpy(
             np.zeros((4, 3)), np.zeros(4), np.arange(20), np.zeros(5),
             np.zeros(20), np.zeros(4), np.zeros(4), np.zeros(4), **kw),
@@ -172,6 +212,9 @@ def _tensors(out):
         yield out
     elif isinstance(out, (tuple, list)):
         for x in out:
+            yield from _tensors(x)
+    elif isinstance(out, dict):
+        for x in out.values():
             yield from _tensors(x)
     elif dataclasses.is_dataclass(out):
         for f in dataclasses.fields(out):
