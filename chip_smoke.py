@@ -62,18 +62,61 @@ What it does, in order:
      exact), then at refine_frac 0, 0.05, 0.25 and 1.0 the same prefixes
      re-inserted and 31 decode steps each, first in the bucket-major
      layout (``agg_refine_attention``), then in the flat layout
-     (``aggregated_attention``), both with ``distance_topk`` selecting the
-     buckets in its batched regime (one launch a layer for the four
-     sequences: 36 a decode step at every refine_frac above 0 and 36 a
-     prefill token, which the run checks); per level tokens/s, step
+     (``aggregated_attention_decode``), both with ``distance_topk``
+     selecting the buckets in its batched regime (one launch a layer for
+     the four sequences: 36 a decode step at every refine_frac above 0 and
+     36 a prefill token, which the run checks); per level tokens/s, step
      p50/p99, KL and greedy-token agreement against rf 1.0
      (benchmarks/decode_bench.py) and the largest
      bucket count against the capacity; then decode_bench's exactness guard
      in f32 at full width, 2 layers deep: at rf 1.0 the engine's tokens
      equal an exact-attention decode's and its logits agree within 1e-4,
-     in both layouts;
+     in both layouts, and so do the serve phase's ``LMServable``'s at a
+     full budget on the LM server's relaxed prompts (run after the serve
+     phase, which serves the same bf16 weights);
+   * the serving stack (``repro_torch.serve`` and ``repro_torch.obs``):
+     three ``Server``s, each under a live ``Tracer``, a ``FlightRecorder``,
+     a 1 s rollup and ``default_objectives()``: kNN over all 2.3 M points
+     and CF over all 48,019 users (one servable each, sharing one
+     ``AggregateStore``; pyramids of 1,048,576 and 16,384 base buckets;
+     ``BudgetPolicy`` at the jobs' ratio and eps, floors 0.005 and 0.01;
+     ``ContinuousBatcher(max_batch=64)``), and qwen3-8b in the flat layout
+     on the LM phase's weights (``LMServable``, 16-token prompts, 4 tokens,
+     eps_max 0.25, pad sizes 1 and 2).  kNN and CF: ``calibrate`` (its
+     probe batch the probe row in all 64 rows, each pass timed with its
+     padding, unpacking and error bounds), ``ema = 0``, ``prewarm`` at
+     every pad size, ``reset_metrics``; SLO classes from the fitted model
+     (relaxed 1.5 x ``deadline_for(eps_max)``, tight 1.15 x
+     ``deadline_for`` at the grid value below eps_max, 0.005 / 0.04 / 0.16,
+     kNN's hopeless 0.25 x ``deadline_for(0)``); four waves of 64 requests
+     a class drawn from the test queries (CF: the active users), a kNN wave
+     with a loose ``max_error``, a wave under ``install_kernel_probe`` and
+     one held against a direct ``run`` with its kernel calls captured; the
+     LM calibrated at batch 1 and sent a relaxed wave (its kernel calls
+     captured, cloned) and a tight wave of 2 prompts; the kNN pyramid saved
+     and a fresh server warm-started from it; a ``FrontDoor`` with tenants ``a``
+     (unlimited) and ``b`` (20/s, burst 4), 32 requests each, through its
+     worker thread.  Checked: one terminal answer a request, each with its
+     stage-1 answer; a batch's answers the bits of a direct ``run`` at the
+     granted budget; relaxed eps at least tight eps; no kNN or CF relaxed
+     batch escalated, and every kNN one granted eps_max; kNN's hopeless
+     requests escalated and re-executed; the loose wave skipped stage 2; no
+     cache miss after ``prewarm``; the warm start's first request a hit on
+     restored levels with the saved server's bits; ``b``'s excess refused
+     with ``Overloaded`` and a ``retry_after_s`` above 0; the metrics
+     snapshot, trace and flight exports valid, every escalated batch kept;
+     the probe's calls per op equal to the launches; ``calibrate``'s
+     stage-1 time at least the CUDA-event time of its own runs; eight
+     kernels launched (all but ``agg_refine_attention``).  Per class it
+     prints, besides the latencies and grants, each batch's host time
+     outside its servable runs (from the spans) and its span over the
+     grant's predicted time;
 3. holds each kernel against its plain PyTorch version (``kernels/ref.py``)
-   on the very inputs the paths gave it, at every shape it was called with,
+   on the very inputs the paths gave it, at every shape it was called with
+   (the serve phase's: one batch of each kNN and CF wave held against a
+   direct run, and the LM server's relaxed wave: the first call of each
+   shape, prefill at B 1 and decode at B 2 at rf 0 and 0.25, with 64
+   buckets over 1024 slots of which a few hold tokens),
    and times kernel, plain version and, where one PyTorch call computes the
    same function, that call (``library_ms``); ``distance_topk`` at each of
    its shapes: the kNN shapes (wide regime) and the LM's batched ones (B 4
@@ -112,6 +155,7 @@ the package is not beside it, or when any check fails.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import re
@@ -192,6 +236,39 @@ LM_GUARD_TOL = 1e-4           # benchmarks/decode_bench.py:130
 ATTN_TOL = 2e-5               # tests/test_kernels.py:108
 LM_CPU_TOL = 2e-5             # card vs CPU, smoke config, f32
 
+# The serving stack: three servers, each over one servable that holds a
+# whole dataset (the deployment of one card): kNN over all N_TRAIN points
+# and CF over all CF_USERS users, sharing one AggregateStore, and qwen3-8b
+# (the LM phase's weights, flat layout).  Policies: the jobs' ratios and
+# eps; the LM's eps_max 0.25 gives refined budgets of 1 to 16 of its 64
+# buckets.  Traffic per kind in waves of SERVE_BATCH requests per SLO class,
+# the classes derived from the fitted cost model: relaxed 1.5 x
+# deadline_for(eps_max), tight 1.15 x deadline_for(the grid value below
+# eps_max), hopeless 0.25 x deadline_for(0) (kNN only; CF has none, as
+# benchmarks/serve_latency.py:34).
+SERVE_BATCH = 64
+SERVE_WAVES = 4
+SERVE_SEED = 40
+SERVE_POLICY = {
+    "knn": dict(compression_ratio=RATIO, eps_max=0.01, degrade_floor=0.005),
+    "cf": dict(compression_ratio=CF_RATIO, eps_max=0.05, degrade_floor=0.01),
+    "lm": dict(eps_max=0.25, degrade_floor=0.04),
+}
+SERVE_CLASSES = {"knn": ("relaxed", "tight", "hopeless"),
+                 "cf": ("relaxed", "tight"), "lm": ("relaxed", "tight")}
+# The relaxed class never escalates, and in these kinds keeps eps_max in
+# every batch.  CF's may be cut below it: its stage 2 costs nearly as much
+# at eps 0.02 as at 0.05, so the tight class's batches, granted less, run
+# well over their linear prediction and raise the load correction that the
+# kind's classes share (PERF.md, PR 20).
+SERVE_KEEPS_EPS_MAX = ("knn",)
+SERVE_LOOSE_ERROR = 1.0       # kNN bounds lie in [0, 1]: every one meets it
+LM_SERVE_PROMPT = 16
+LM_SERVE_NEW = 4
+LM_SERVE_SLOTS = 2
+DOOR_BURST = 32               # requests a tenant sends through the front door
+DOOR_B = dict(rate=20.0, burst=4.0)
+
 KNN_KERNELS = ("distance_topk", "candidate_topk", "knn_distance",
                "refine_distances", "lsh_hash")
 CF_KERNELS = ("cf_weights", "cf_refine", "lsh_hash")
@@ -200,8 +277,9 @@ STORE_KERNELS = ("lsh_hash", "distance_topk", "knn_distance",
                  "refine_distances", "candidate_topk", "cf_weights",
                  "cf_refine")
 LM_KERNELS = {"bucket_major": ("distance_topk", "agg_refine_attention"),
-              "flat": ("distance_topk", "aggregated_attention")}
-ATTN_KERNELS = ("agg_refine_attention", "aggregated_attention")
+              "flat": ("distance_topk", "aggregated_attention_decode")}
+ATTN_KERNELS = ("agg_refine_attention", "aggregated_attention_decode")
+SERVE_KERNELS = STORE_KERNELS + ("aggregated_attention_decode",)
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): fp32 on the CUDA
 # cores and HBM3 bandwidth, both at the full 700 W power limit.
@@ -220,13 +298,11 @@ REPLACES = {
     "cf_weights": "src/repro/kernels/cf_weights.py:70",
     "cf_refine": "src/repro/kernels/cf_refine.py:115",
     "agg_refine_attention": "src/repro/kernels/agg_refine.py:132",
-    "aggregated_attention": "src/repro/kernels/aggregated_attention.py:94",
+    "aggregated_attention_decode":
+        "src/repro/kernels/aggregated_attention.py:94",
 }
 SOURCES = {"agg_refine_attention": "agg_refine",
-           "aggregated_attention": "aggregated_attention"}
-PLAIN = {"aggregated_attention": "aggregated_attention_decode"}
-
-
+           "aggregated_attention_decode": "aggregated_attention"}
 def fail(msg: str):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
@@ -402,7 +478,7 @@ def work(torch, op, args, kwargs):
         return (2.0 * g * (dk + dv) * hkv * int(n_live.sum()),
                 4 * b * hkv * g * dk + rows * hkv * (dk + dv) * item
                 + 9 * top_idx.numel() + 4 * b * hkv * g * (2 + dv))
-    if op == "aggregated_attention":
+    if op == "aggregated_attention_decode":
         # bucket_of below valid_len, the live tokens' K/V rows, the live
         # centroids, counts and refined: each read once
         q, kc, vc, bucket_of, mk, mv, counts, refined = args
@@ -481,7 +557,7 @@ def kernel_fns(ops, ref, op, kwargs):
     ids epilogue (a ``base`` given) has its own pair."""
     if op == "lsh_hash" and "base" in kwargs:
         return ops.lsh_bucket_ids_cuda, ref.lsh_bucket_ids
-    return ops.KERNELS[op], getattr(ref, PLAIN.get(op, op))
+    return ops.KERNELS[op], getattr(ref, op)
 
 
 def compare_lsh(torch, ref, raw_kernel, args, kwargs, got, want):
@@ -605,7 +681,7 @@ def library_call(torch, op, args, kwargs):
         if len(args) > 2 and args[2] is not None:
             cat = torch.cat([args[2], cat], dim=1)
         return lambda: torch.topk(cat, kwargs["k"], dim=1, largest=False)
-    if op == "aggregated_attention":
+    if op == "aggregated_attention_decode":
         return sdpa_call(torch, args, kwargs)
     return None
 
@@ -1666,7 +1742,48 @@ def lm_guard(torch, model_lib, engine_cls, get_config, prompts):
                  "attention")
         out[layout] = {"tokens_equal": same, "max_logit_err": err,
                        "max_bucket_count": worst, "capacity": cap}
+    out["servable"] = lm_servable_guard(torch, model_lib, model, cfg)
     return out
+
+
+def lm_servable_guard(torch, model_lib, model, cfg) -> dict:
+    """The serve phase's LMServable (flat, LM_SERVE_SLOTS slots, its relaxed
+    prompts) at a full budget on the guard's f32 model: its tokens equal an
+    exact-attention decode's of the same prompts and its logits agree
+    within LM_GUARD_TOL."""
+    import numpy as np
+
+    from repro_torch.serve.lm import DecodeEngine, LMServable
+
+    engine = DecodeEngine(model, cfg.with_(agg_layout="flat"),
+                          max_slots=LM_SERVE_SLOTS, s_max=LM_S_MAX,
+                          generator=torch.Generator("cuda").manual_seed(7))
+    servable = LMServable(engine, prompt_len=LM_SERVE_PROMPT,
+                          max_new_tokens=LM_SERVE_NEW)
+    prompts = lm_serve_prompts(cfg.vocab_size)[:LM_SERVE_SLOTS]
+    full = servable.run(engine, servable.pad_batch(
+        [(p,) for p in prompts], LM_SERVE_SLOTS),
+        refine_budget=servable.n_points)
+    exact_cfg = cfg.with_(agg_kv=False)
+    agree, err = [], 0.0
+    for i, p in enumerate(prompts):
+        ex_t, ex_l = lm_exact_decode(torch, model_lib, model, exact_cfg, p,
+                                     LM_SERVE_NEW)
+        ex_l = ex_l.cpu().numpy()
+        err = max(err, float(np.abs(full["logits"][i] - ex_l).max()))
+        agree.append(np.array_equal(full["tokens"][i], ex_t.cpu().numpy())
+                     and np.allclose(full["logits"][i], ex_l,
+                                     rtol=LM_GUARD_TOL, atol=LM_GUARD_TOL))
+    same = all(agree)
+    print(f"LM guard servable (f32, {LM_GUARD_LAYERS} layers, flat, "
+          f"{LM_SERVE_SLOTS} x {LM_SERVE_PROMPT}-token prompts, full budget "
+          f"{servable.n_points} buckets vs exact attention): tokens and "
+          f"logits equal {same}, max logit err {err:.3e} (tol "
+          f"{LM_GUARD_TOL})")
+    if not same:
+        fail("LM guard servable: the full-budget answer differs from exact "
+             "attention")
+    return {"tokens_and_logits_equal": same, "max_logit_err": err}
 
 
 def lm_small_check(torch):
@@ -1710,7 +1827,8 @@ def lm_small_check(torch):
 
 def lm_phase(torch, ops, probe, jobs):
     """The LM path at qwen3-8b's full width and depth in bf16, both
-    layouts; returns (summary, launch counts summed over the layouts)."""
+    layouts; returns (summary, launch counts summed over the layouts, the
+    model and its config: the serve phase serves the same weights)."""
     from repro_torch.configs import get_config, param_count
     from repro_torch.models import model as model_lib
     from repro_torch.serve.lm.engine import DecodeEngine
@@ -1734,12 +1852,632 @@ def lm_phase(torch, ops, probe, jobs):
                                           model, cfg, layout, prompts, jobs)
         for op, n in counts.items():
             total[op] = total.get(op, 0) + n
-    del model
+    return summary, total, model, cfg
+
+
+def lm_guard_phase(torch):
+    """decode_bench's exactness guard (``lm_guard``) on the LM phase's
+    prompts."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as model_lib
+    from repro_torch.serve.lm.engine import DecodeEngine
+
+    prompts = lm_prompts(get_config(LM_ARCH).vocab_size, LM_SLOTS, LM_PROMPT,
+                         seed=0)
+    out = lm_guard(torch, model_lib, DecodeEngine, get_config, prompts)
     torch.cuda.empty_cache()
-    summary["guard"] = lm_guard(torch, model_lib, DecodeEngine, get_config,
-                                prompts)
-    torch.cuda.empty_cache()
-    return summary, total
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the serving stack
+# ---------------------------------------------------------------------------
+
+def _serve_stats(responses, class_of, traces) -> dict:
+    """Per SLO class: the latencies' p50 and p99 (ms), the granted eps, the
+    deadline-met rate and escalations (first executions only), the cache's
+    hit rate and sources, the shuffle bytes, and the p50 and largest of
+    each batch's host time outside its runs and of its span over the
+    grant's predicted time (per batch, from the span trees: a batch serves
+    one class)."""
+    from repro_torch.obs.metrics import percentile
+
+    out = {}
+    for cls in dict.fromkeys(class_of.values()):
+        first = [r for r in responses
+                 if class_of[r.rid] == cls and not r.reexecuted]
+        every = [r for r in responses if class_of[r.rid] == cls]
+        s1 = [r.stage1_latency_s * 1e3 for r in every]
+        tot = [r.total_latency_s * 1e3 for r in every]
+        out[cls] = {
+            "requests": len(first), "reexecutions": len(every) - len(first),
+            "stage1_ms": {"p50": percentile(s1, 50),
+                          "p99": percentile(s1, 99)},
+            "total_ms": {"p50": percentile(tot, 50),
+                         "p99": percentile(tot, 99)},
+            "eps_mean": statistics.fmean(r.eps_granted for r in first),
+            "eps": sorted({r.eps_granted for r in first}),
+            "deadline_met_rate": statistics.fmean(
+                r.deadline_met for r in first),
+            "escalated": sum(r.escalated for r in first),
+            "refined": sum(r.refined is not None for r in every),
+            "cache_hit_rate": statistics.fmean(r.cache_hit for r in every),
+            "cache_sources": {}, "shuffle_bytes": 0, "batches": 0,
+            "host_ms": [], "batch_over_predicted": [],
+        }
+    for root in traces:
+        waits = root.find("batcher.wait")
+        row = out.get(class_of.get(waits[0].attrs["rid"])) if waits else None
+        if row is None:
+            continue
+        src = root.find("cache.lookup")[0].attrs["source"]
+        row["cache_sources"][src] = row["cache_sources"].get(src, 0) + 1
+        row["shuffle_bytes"] += root.attrs["shuffle_bytes"]
+        row["batches"] += 1
+        # the batch's time outside its servable runs (grant, cache lookup,
+        # padding, unpacking, bounds, accuracy proxy, responses); of it the
+        # fitted model covers the unpacking alone (calibrate times it)
+        runs = root.find("stage1") + root.find("stage2.refine")
+        row["host_ms"].append(
+            (root.duration_s - sum(s.duration_s for s in runs)) * 1e3)
+        predicted = root.find("deadline.grant")[0].attrs["predicted_s"]
+        if predicted > 0:
+            row["batch_over_predicted"].append(root.duration_s / predicted)
+    for row in out.values():
+        for key in ("host_ms", "batch_over_predicted"):
+            xs = row[key]
+            row[key] = {"p50": statistics.median(xs), "max": max(xs)} \
+                if xs else None
+    return out
+
+
+def _serve_wave(server, kind, payloads, deadline_s, class_name, class_of,
+                max_error=None):
+    """Submit one wave and drain it: its responses, the re-executions
+    included."""
+    for p in payloads:
+        rid = server.submit(kind, p, deadline_s, max_error=max_error)
+        class_of[rid] = class_name
+    return server.drain()
+
+
+def _check_terminal(kind, responses, class_of):
+    """Each submitted request has exactly one terminal response (a response
+    that is not escalated, or a re-execution), every response a stage-1
+    answer, and an escalated first answer its re-execution."""
+    terminal = {}
+    for r in responses:
+        if r.stage1 is None:
+            fail(f"serve {kind}: request {r.rid} has no stage-1 answer")
+        if not r.escalated or r.reexecuted:
+            terminal[r.rid] = terminal.get(r.rid, 0) + 1
+            if r.refined is None and r.reexecuted:
+                fail(f"serve {kind}: re-execution {r.rid} has no refined "
+                     "answer")
+    bad = [rid for rid in class_of if terminal.get(rid) != 1]
+    if bad:
+        fail(f"serve {kind}: {len(bad)} requests without exactly one "
+             f"terminal answer (first: {bad[:5]})")
+
+
+def _same_answers(kind, server, prepared, responses, payload_of) -> list:
+    """The server's stage-1 and refined answers of a wave equal, to the
+    bit, a direct ``run`` of the same padded batch on the same prepared
+    aggregates at the granted budget, batch by batch (re-executions of
+    escalated requests included).  Returns the budgets held."""
+    import numpy as np
+
+    from repro_torch.core.refine import eps_to_budget
+    from repro_torch.serve.scheduler import pad_size
+
+    servable = server.servables[kind]
+    budgets, i = [], 0
+    while i < len(responses):      # in serving order, a batch at a time
+        group = responses[i:i + responses[i].batch_size]
+        i += len(group)
+        if len({(r.eps_granted, r.reexecuted) for r in group}) != 1:
+            fail(f"serve {kind}: one batch, several grants")
+        batch = servable.pad_batch(
+            [payload_of[r.rid] for r in group],
+            pad_size(len(group), server.batcher.pad_sizes))
+        budget = eps_to_budget(servable.n_points, group[0].eps_granted)
+        outs = {"stage1": 0, "refined": budget} if budget else {"stage1": 0}
+        for stage, b in outs.items():
+            want = servable.unpack(servable.run(prepared, batch,
+                                                refine_budget=b), len(group))
+            for r, w in zip(group, want):
+                got = getattr(r, stage)
+                same = (np.array_equal(got["tokens"], w["tokens"])
+                        and np.array_equal(got["logits"], w["logits"])
+                        if kind == "lm" else np.array_equal(np.asarray(got),
+                                                            np.asarray(w)))
+                if not same:
+                    fail(f"serve {kind}: request {r.rid}'s {stage} answer "
+                         f"differs from a direct run at budget {b}")
+        budgets.append(budget)
+    if not any(budgets):
+        fail(f"serve {kind}: the wave held against a direct run had no "
+             "refined answer")
+    return budgets
+
+
+class EventRecorder:
+    """Wraps a servable's ``run`` to put CUDA events around each call: the
+    card's time of every run ``calibrate`` makes and times itself."""
+
+    def __init__(self, torch, servable):
+        self.torch, self.servable, self.run = torch, servable, servable.run
+        self.calls = []
+
+    def __enter__(self):
+        def run(*args, refine_budget, **kwargs):
+            ev = [self.torch.cuda.Event(enable_timing=True) for _ in "se"]
+            ev[0].record()
+            out = self.run(*args, refine_budget=refine_budget, **kwargs)
+            ev[1].record()
+            self.calls.append((refine_budget, ev))
+            return out
+        self.servable.run = run
+        return self
+
+    def __exit__(self, *exc):
+        del self.servable.run       # the class's run again
+
+
+def calibrate_covers(server, kind, recorder) -> dict:
+    """``calibrate``'s stage-1 time (the fitted model at eps 0: the median
+    of its three timed runs at eps 0, each on the host clock up to a
+    synchronise) against the median CUDA-event time of the same three runs
+    (its first four calls: a warm-up, then the timed ones).  Separate runs
+    would not do: the card's clock moves between them."""
+    servable = server.servables[kind]
+    ctl = server.controller
+    t_eps0 = ctl.models[kind].predict(servable.n_points,
+                                      ctl.policy.compression_ratio, 0.0)
+    timed = recorder.calls[1:4]
+    if [b for b, _ in recorder.calls[:4]] != [0] * 4:
+        fail(f"serve {kind}: calibrate's first runs were not at budget 0")
+    card = statistics.median(s.elapsed_time(e) / 1e3 for _, (s, e) in timed)
+    if t_eps0 < card:
+        fail(f"serve {kind}: calibrate's stage-1 time {t_eps0 * 1e3:.3f} ms "
+             f"is below the card's {card * 1e3:.3f} ms for the same runs: it "
+             "timed launches, not the work")
+    return {"t_eps0_ms": t_eps0 * 1e3, "event_ms": card * 1e3}
+
+
+def slo_classes(server, kind) -> dict:
+    """The kind's SLO classes from its fitted model, derived as
+    ``prepare_demo_server`` derives them, the tight class at the grid value
+    below eps_max."""
+    ctl = server.controller
+    n = server.servables[kind].n_points
+    tight = max(e for e in ctl.eps_grid if e < ctl.policy.eps_max)
+    slos = {"relaxed": 1.5 * ctl.deadline_for(kind, n, ctl.policy.eps_max),
+            "tight": 1.15 * ctl.deadline_for(kind, n, tight),
+            "hopeless": 0.25 * ctl.deadline_for(kind, n, 0.0)}
+    return {c: slos[c] for c in SERVE_CLASSES[kind]}
+
+
+def _make_server(servables, kind, batcher, **obs):
+    from repro_torch.core.budget import BudgetPolicy
+    from repro_torch.serve import DeadlineController, Server
+
+    return Server(servables, controller=DeadlineController(
+        BudgetPolicy(**SERVE_POLICY[kind])), batcher=batcher, **obs)
+
+
+def _observed():
+    """A live tracer, a flight recorder, a 1 s rollup and the default SLO
+    objectives: what every server of the phase runs under."""
+    from repro_torch.obs import FlightRecorder, Tracer, default_objectives
+
+    return dict(tracer=Tracer(), flight=FlightRecorder(capacity=256),
+                window_s=1.0, slo_objectives=default_objectives())
+
+
+def _check_exports(kind, server):
+    """The metrics snapshot, the trace and the flight recorder's export
+    pass their schemas, and the recorder holds every escalated batch."""
+    from repro_torch.obs import (
+        validate_flight_jsonl, validate_snapshot, validate_trace_jsonl,
+    )
+
+    problems = validate_snapshot(server.metrics.snapshot())
+    problems += validate_trace_jsonl(server.tracer.to_jsonl())
+    problems += validate_flight_jsonl(server.flight.to_jsonl())
+    if problems:
+        fail(f"serve {kind}: exports fail their schemas: {problems[:3]}")
+    kept = {id(e.root) for e in server.flight.entries()}
+    escalated = [root for root in server.tracer.traces()
+                 if root.find("deadline.grant")[0].attrs["escalate"]]
+    if any(id(root) not in kept for root in escalated):
+        fail(f"serve {kind}: the flight recorder lost an escalated batch")
+    return {"flight_entries": len(server.flight),
+            "flight_reasons": sorted({e.reason for e in
+                                      server.flight.entries()}),
+            "escalated_batches": len(escalated),
+            "spans": sum(1 for root in server.tracer.traces()
+                         for _ in root.walk())}
+
+
+def _probe_wave(ops, server, kind, payloads, deadline_s, class_of):
+    """One wave under ``install_kernel_probe``: its calls per op equal the
+    kernels' launches over the same wave.  Returns (summary, responses)."""
+    from repro_torch.obs import (
+        MetricsRegistry, install_kernel_probe, uninstall_kernel_probe,
+    )
+
+    before = ops.launch_counts()
+    probe = install_kernel_probe(MetricsRegistry())
+    try:
+        out = _serve_wave(server, kind, payloads, deadline_s, "probe",
+                          class_of)
+    finally:
+        uninstall_kernel_probe()
+    after = ops.launch_counts()
+    launched = {op: after[op] - before[op] for op in after
+                if after[op] > before[op]}
+    if probe.calls() != launched:
+        fail(f"serve {kind}: the probe counted {probe.calls()}, the kernels "
+             f"launched {launched}")
+    return {"calls": probe.calls(), "summary": probe.summary()}, out
+
+
+def _servable(torch, kind, app, data, store=None):
+    """The kind's servable over a whole dataset on its device."""
+    dev = data[0].device
+    seed = torch.Generator(dev).manual_seed(SERVE_SEED + (kind == "cf"))
+    if kind == "knn":
+        return app.KNNServable(data[0], data[1], n_classes=N_CLASSES, k=K,
+                               lsh_generator=seed, store=store, device=dev)
+    return app.CFServable(data[0], data[1], lsh_generator=seed, store=store,
+                          device=dev)
+
+
+def _serve_lsh_kind(torch, ops, probe, server, kind, payloads,
+                    card_grants=True):
+    """Calibrate, freeze the correction, prewarm every pad size, reset the
+    meters (``prepare_demo_server``'s steps), then the waves of each SLO
+    class, a kNN wave with a loose max_error, a probed wave and a captured
+    one whose answers are held against a direct run; returns the kind's
+    summary and its responses.  ``card_grants`` holds the relaxed class's
+    grants (SERVE_KEEPS_EPS_MAX), which only the card's timings can
+    show."""
+    import random
+
+    servable = server.servables[kind]
+    t0 = time.perf_counter()
+    with EventRecorder(torch, servable) as recorder:
+        server.calibrate(kind)
+    server.controller.ema = 0.0
+    server.prewarm(kind)
+    server.reset_metrics()
+    slos = slo_classes(server, kind)
+    prep_s = time.perf_counter() - t0
+    pick = random.Random(SERVE_SEED)
+    payload_of, class_of, responses = {}, {}, []
+
+    def wave(cls, max_error=None):
+        chosen = [payloads[i] for i in pick.sample(range(len(payloads)),
+                                                   SERVE_BATCH)]
+        # the loose max_error wave: four times the relaxed deadline, so that
+        # only the accuracy SLO decides whether stage 2 runs
+        deadline = slos.get(cls, (4.0 if max_error else 1.0)
+                            * slos["relaxed"])
+        before = set(class_of)
+        out = _serve_wave(server, kind, chosen, deadline, cls, class_of,
+                          max_error)
+        for rid, p in zip(sorted(set(class_of) - before), chosen):
+            payload_of[rid] = p
+        responses.extend(out)
+        return out
+
+    for _ in range(SERVE_WAVES):
+        for cls in slos:
+            wave(cls)
+    loose = wave("loose max_error", SERVE_LOOSE_ERROR) if kind == "knn" \
+        else []
+    chosen = [payloads[i] for i in pick.sample(range(len(payloads)),
+                                               SERVE_BATCH)]
+    probed, out = _probe_wave(ops, server, kind, chosen, slos["relaxed"],
+                              class_of)
+    responses.extend(out)
+    probe.tag = f"serve {kind}"
+    ops.set_probe(probe)
+    checked = wave("checked")
+    ops.set_probe(None)
+    probe.tag = None
+    summary = {"slo_s": slos, "prepare_s": prep_s,
+               "model": dataclasses.asdict(server.controller.models[kind]),
+               "correction": server.controller.correction(kind),
+               "probe": probed}
+
+    # ---- checks ----
+    _check_terminal(kind, responses, class_of)
+    stats = _serve_stats(responses, class_of, server.tracer.traces())
+    if stats["relaxed"]["eps_mean"] < stats["tight"]["eps_mean"]:
+        fail(f"serve {kind}: relaxed mean eps {stats['relaxed']['eps_mean']} "
+             f"below tight {stats['tight']['eps_mean']}")
+    relaxed = stats["relaxed"]
+    eps_max = server.controller.policy.eps_max
+    if card_grants and (relaxed["escalated"] or (
+            kind in SERVE_KEEPS_EPS_MAX and relaxed["eps"] != [eps_max])):
+        fail(f"serve {kind}: the relaxed class escalated or (kNN) was cut "
+             f"below eps_max {eps_max}: eps {relaxed['eps']}, "
+             f"{relaxed['escalated']} escalated, correction "
+             f"{server.controller.correction(kind)}, batch / predicted "
+             f"{relaxed['batch_over_predicted']}")
+    if "hopeless" in stats:
+        h = stats["hopeless"]
+        if h["escalated"] != h["requests"] or h["reexecutions"] != \
+                h["requests"]:
+            fail(f"serve {kind}: hopeless requests escalated {h['escalated']}"
+                 f" and re-executed {h['reexecutions']} of {h['requests']}")
+    granted = [r for r in loose if not r.escalated and not r.reexecuted]
+    if kind == "knn" and (not granted or not all(
+            r.refine_skipped and r.refined is None and r.accuracy_met
+            for r in granted)):
+        fail(f"serve {kind}: the loose max_error wave did not skip stage 2 "
+             "(escalated, re-executed, skipped, met, eps: "
+             + str(sorted({(r.escalated, r.reexecuted, r.refine_skipped,
+                            r.accuracy_met, r.eps_granted) for r in loose}))
+             + ")")
+    cache = server.cache.stats()
+    if cache["misses"]:
+        fail(f"serve {kind}: {cache['misses']} cache misses after prewarm")
+    prepared = servable.build(server.controller.policy.compression_ratio)
+    summary["checked_budgets"] = _same_answers(kind, server, prepared,
+                                               checked, payload_of)
+    summary["calibrate"] = calibrate_covers(server, kind, recorder)
+    summary["exports"] = _check_exports(kind, server)
+    summary["classes"] = stats
+    summary["cache"] = server.cache.stats()
+    summary["summary"] = server.summary()
+    return summary
+
+
+def _warm_start(torch, knn, server, data, payloads) -> dict:
+    """save_aggregates, then a fresh kNN server over the same data whose
+    warm_start makes its first request a cache hit on restored levels, with
+    the saved server's bits."""
+    import tempfile
+
+    from repro_torch.serve import ContinuousBatcher
+
+    old = server.servables["knn"]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        n_saved = server.save_aggregates(Path(tmp) / "agg")
+        save_ms = _ms_since(torch, t0)
+        fresh = _make_server([_servable(torch, "knn", knn, data)], "knn",
+                             ContinuousBatcher(max_batch=SERVE_BATCH))
+        fresh.controller.set_model("knn", server.controller.models["knn"])
+        fresh.controller.ema = 0.0
+        t0 = time.perf_counter()
+        warmed = fresh.warm_start(Path(tmp) / "agg")
+        restore_ms = _ms_since(torch, t0)
+    if n_saved != 1 or warmed != {"restored": 1, "warmed": 1}:
+        new = fresh.servables["knn"]
+        fail(f"serve warm start: saved {n_saved}, warm_start {warmed} (same "
+             f"data fingerprint {new._fingerprint == old._fingerprint}, "
+             f"same draws {new._lsh_key_data == old._lsh_key_data})")
+    batch = payloads[:SERVE_BATCH]
+    t0 = time.perf_counter()
+    rids = [fresh.submit("knn", p, 60.0) for p in batch]
+    out = fresh.drain()
+    first_ms = _ms_since(torch, t0)
+    if [r.rid for r in out] != rids or not all(r.cache_hit for r in out):
+        fail("serve warm start: the first requests were not cache hits")
+    cache = fresh.cache.stats()
+    if cache["restored_hits"] != 1 or cache["misses"]:
+        fail(f"serve warm start: cache {cache}, expected one restored entry "
+             "and no miss")
+    prepared = old.build(server.controller.policy.compression_ratio)
+    _same_answers("knn", fresh, prepared, out, dict(zip(rids, batch)))
+    return {"save_ms": save_ms, "restore_ms": restore_ms,
+            "first_answer_ms": first_ms, "saved": n_saved, **warmed,
+            "cache": cache, "store": fresh.servables["knn"].store.stats()}
+
+
+def _front_door(server, payloads) -> dict:
+    """Two tenants before the kNN server through the worker thread: ``a``
+    unlimited, ``b`` at 20/s with a burst of 4; each sends DOOR_BURST."""
+    from repro_torch.serve import FrontDoor, Overloaded, Response, TenantSpec
+
+    door = FrontDoor(
+        server, tenants=[TenantSpec("a"), TenantSpec("b", **DOOR_B)],
+        default_deadline_s=60.0, queue_limit=4 * DOOR_BURST)
+    door.start()
+    try:
+        rids = {t: [door.submit("knn", payloads[i], tenant=t)
+                    for i in range(DOOR_BURST)] for t in ("b", "a")}
+        got = {t: [door.wait(rid, timeout_s=300.0) for rid in rs]
+               for t, rs in rids.items()}
+    finally:
+        door.stop()
+    refused = [r for r in got["b"] if isinstance(r, Overloaded)]
+    if not refused or not all(r.reason == "quota" and r.retry_after_s > 0
+                              for r in refused):
+        fail(f"serve front door: tenant b's excess was not refused with "
+             f"Overloaded and a retry_after_s > 0 ({len(refused)} refused)")
+    answered = [r for t in got for r in got[t]
+                if isinstance(r, Response)]
+    for t in got:
+        for rid, r in zip(rids[t], got[t]):
+            if r is None or r.rid != rid:
+                fail(f"serve front door: tenant {t}'s request {rid} was "
+                     "not answered")
+    if any(isinstance(r, Overloaded) for r in got["a"]):
+        fail("serve front door: the unlimited tenant was refused")
+    stats = door.stats()
+    if stats["pending_results"] or stats["admitted"] != len(answered):
+        fail(f"serve front door: {stats}")
+    return stats
+
+
+def lm_serve_prompts(vocab: int):
+    """The LM server's prompts: a relaxed and a tight wave's."""
+    import numpy as np
+
+    return lm_prompts(vocab, 2 * LM_SERVE_SLOTS, LM_SERVE_PROMPT,
+                      seed=5).astype(np.int32)
+
+
+def _lm_serve(torch, ops, probe, model, cfg) -> dict:
+    """The LM server: calibrate at batch 1 (no prewarm: there is nothing
+    to build), then a relaxed and a tight wave of LM_SERVE_SLOTS prompts.
+    The relaxed wave's kernel calls are captured (cloned: the caches change
+    in place) for the kernel rows, and its answers are held against a
+    direct run.  (Its full-budget answer is held against exact attention
+    by ``lm_servable_guard``, in f32.)"""
+    from repro_torch.serve import ContinuousBatcher
+    from repro_torch.serve.lm import DecodeEngine, LMServable, lm_pad_sizes
+
+    engine = DecodeEngine(model, cfg.with_(agg_layout="flat"),
+                          max_slots=LM_SERVE_SLOTS, s_max=LM_S_MAX,
+                          generator=torch.Generator(model.embed.device)
+                          .manual_seed(7))
+    servable = LMServable(engine, prompt_len=LM_SERVE_PROMPT,
+                          max_new_tokens=LM_SERVE_NEW)
+    server = _make_server([servable], "lm", ContinuousBatcher(
+        max_batch=LM_SERVE_SLOTS, pad_sizes=lm_pad_sizes(LM_SERVE_SLOTS)),
+        **_observed())
+    t0 = time.perf_counter()
+    server.calibrate("lm", batch=1)
+    server.controller.ema = 0.0
+    server.reset_metrics()
+    prep_s = time.perf_counter() - t0
+    slos = slo_classes(server, "lm")
+    prompts = lm_serve_prompts(cfg.vocab_size)
+    lm_probe = CaptureProbe(torch, clone=True)
+    run = servable.run
+
+    def tagged_run(prepared, batch, *, refine_budget):
+        # a capture key per pass: stage 1 and the refined pass call the
+        # decode kernels at the same shapes
+        lm_probe.tag = f"serve lm budget {refine_budget}"
+        return run(prepared, batch, refine_budget=refine_budget)
+
+    class_of, payload_of, responses = {}, {}, []
+    for i, cls in enumerate(SERVE_CLASSES["lm"]):
+        chosen = [(p,) for p in prompts[i * LM_SERVE_SLOTS:
+                                        (i + 1) * LM_SERVE_SLOTS]]
+        before = set(class_of)
+        if cls == "relaxed":
+            ops.set_probe(lm_probe)
+            servable.run = tagged_run
+        try:
+            responses += _serve_wave(server, "lm", chosen, slos[cls], cls,
+                                     class_of)
+        finally:
+            ops.set_probe(None)
+            vars(servable).pop("run", None)   # the class's run again
+        payload_of.update(zip(sorted(set(class_of) - before), chosen))
+    missing = {"distance_topk", "aggregated_attention_decode"} - set(
+        lm_probe.calls)
+    if missing:
+        fail(f"serve lm: the relaxed wave's calls of {sorted(missing)} "
+             "were not captured")
+    for op, calls in lm_probe.calls.items():
+        probe.calls.setdefault(op, {}).update(calls)
+    _check_terminal("lm", responses, class_of)
+    stats = _serve_stats(responses, class_of, server.tracer.traces())
+    if stats["relaxed"]["eps_mean"] < stats["tight"]["eps_mean"]:
+        fail(f"serve lm: relaxed mean eps {stats['relaxed']['eps_mean']} "
+             f"below tight {stats['tight']['eps_mean']}")
+    relaxed = [r for r in responses if class_of[r.rid] == "relaxed"]
+    budgets = _same_answers("lm", server, engine, relaxed, payload_of)
+    return {"slo_s": slos, "prepare_s": prep_s,
+            "model": dataclasses.asdict(server.controller.models["lm"]),
+            "classes": stats, "exports": _check_exports("lm", server),
+            "summary": server.summary(), "checked_budgets": budgets,
+            "captured": {op: len(c) for op, c in lm_probe.calls.items()}}
+
+
+def serve_phase(torch, knn, cf, ops, probe, knn_data, cf_data, lm_model,
+                lm_cfg, card_grants=True):
+    """The serving stack on the card: kNN, CF and LM servers through the
+    port's Server, then the warm start and the front door; returns
+    (summary, the path's launch counts).  ``card_grants=False`` leaves out
+    the one check that needs the card's timings (the relaxed class's
+    grants): for a rehearsal on the CPU with plain versions."""
+    from repro_torch.serve import ContinuousBatcher
+    from repro_torch.store import AggregateStore
+
+    t_phase = time.perf_counter()
+    train_x, train_y, test_x, _ = knn_data
+    nr, nm, a, am = cf_data[:4]
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+
+    store = AggregateStore()      # kNN and CF share it
+    knn_payloads = [(q,) for q in test_x]
+    servers, out = {}, {}
+    for kind, app, data, payloads in (
+            ("knn", knn, (train_x, train_y), knn_payloads),
+            ("cf", cf, (nr, nm), [(a[i], am[i]) for i in range(a.shape[0])])):
+        servers[kind] = _make_server(
+            [_servable(torch, kind, app, data, store)], kind,
+            ContinuousBatcher(max_batch=SERVE_BATCH), **_observed())
+        out[kind] = _serve_lsh_kind(torch, ops, probe, servers[kind], kind,
+                                    payloads, card_grants)
+        if kind == "knn":
+            # saved before CF builds its pyramid in the shared store: the
+            # snapshot holds the kNN pyramid alone
+            out["warm_start"] = _warm_start(torch, knn, servers["knn"],
+                                            (train_x, train_y), knn_payloads)
+    out["lm"] = _lm_serve(torch, ops, probe, lm_model, lm_cfg)
+    out["front_door"] = _front_door(servers["knn"], knn_payloads)
+    counts = ops.launch_counts()
+    out["store"] = store.stats()
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out, counts
+
+
+def print_serve(summary):
+    """The serve phase's lines: per kind the fitted CostModel and, per SLO
+    class, the latencies, granted eps, deadline-met rate, cache and
+    shuffle bytes; the warm start, the front door, the peak memory."""
+    for kind in ("knn", "cf", "lm"):
+        k = summary[kind]
+        print(f"serve {kind}: CostModel {k['model']}, prepared in "
+              f"{k['prepare_s']:.1f} s; SLO classes "
+              + ", ".join(f"{c} {v * 1e3:.2f} ms" for c, v in
+                          k["slo_s"].items()))
+        for cls, st in k["classes"].items():
+            print(f"serve {kind} {cls}: {st['requests']} requests "
+                  f"(+{st['reexecutions']} re-executions) in "
+                  f"{st['batches']} batches; stage-1 p50 "
+                  f"{st['stage1_ms']['p50']:.2f} ms p99 "
+                  f"{st['stage1_ms']['p99']:.2f} ms, total p50 "
+                  f"{st['total_ms']['p50']:.2f} ms p99 "
+                  f"{st['total_ms']['p99']:.2f} ms; eps granted mean "
+                  f"{st['eps_mean']:.4g} {st['eps']}; deadline met "
+                  f"{st['deadline_met_rate']:.3f}; escalated "
+                  f"{st['escalated']}; cache hit rate "
+                  f"{st['cache_hit_rate']:.3f} {st['cache_sources']}; "
+                  f"shuffle bytes {st['shuffle_bytes']}; host ms a batch "
+                  f"outside the runs {st['host_ms']}; batch span / predicted "
+                  f"{st['batch_over_predicted']}")
+        if "calibrate" in k:
+            print(f"serve {kind}: calibrate's stage-1 "
+                  f"{k['calibrate']['t_eps0_ms']:.3f} ms >= the card's "
+                  f"{k['calibrate']['event_ms']:.3f} ms; probe calls "
+                  f"{k['probe']['calls']} = launches; cache {k['cache']}")
+        print(f"serve {kind}: a wave against a direct run at budgets "
+              f"{k['checked_budgets']}: the same bits"
+              + (f"; kernel calls captured {k['captured']}"
+                 if "captured" in k else ""))
+        print(f"serve {kind}: exports valid, {k['exports']}")
+    w = summary["warm_start"]
+    print(f"serve warm start: save {w['save_ms']:.1f} ms, warm_start "
+          f"{w['restore_ms']:.1f} ms, first answer {w['first_answer_ms']:.1f}"
+          f" ms (a cache hit, the saved server's bits); cache {w['cache']}")
+    print(f"serve front door stats(): {summary['front_door']}")
+    print(f"serve phase: {summary['phase_s']:.1f} s, peak "
+          f"{summary['peak_gib']:.1f} GiB allocated "
+          f"(torch.cuda.max_memory_allocated)")
 
 
 def _shape(key, args, kwargs) -> str:
@@ -1933,10 +2671,26 @@ def main() -> int:
     # ---- aggregated-KV LM decode ----
     lm_probe = CaptureProbe(torch, clone=True)
     lm_jobs = {}
-    lm_summary, counts_lm = lm_phase(torch, ops, lm_probe, lm_jobs)
-    print(json.dumps({"lm": lm_summary}))
+    lm_summary, counts_lm, lm_model, lm_cfg = lm_phase(torch, ops, lm_probe,
+                                                       lm_jobs)
     for op, calls in lm_probe.calls.items():
         probe.calls.setdefault(op, {}).update(calls)
+
+    # ---- the serving stack: kNN, CF and LM servers ----
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_summary, counts_serve = serve_phase(
+        torch, knn, cf, ops, probe, (train_x, train_y, test_x, test_y),
+        cf_data, lm_model, lm_cfg)
+    print_serve(serve_summary)
+    print(f"serve phase card: {smi}")
+    print(json.dumps({"serve": serve_summary}, default=str))
+    check_launched("serve", counts_serve, SERVE_KERNELS)
+    del lm_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_summary["guard"] = lm_guard_phase(torch)
+    print(json.dumps({"lm": lm_summary}))
 
     # ---- every kernel against its plain version ----
     counts = {**counts_knn, **{op: counts_cf[op] for op in CF_KERNELS},
@@ -1945,11 +2699,15 @@ def main() -> int:
     counts["lsh_hash"] = counts_knn["lsh_hash"] + counts_cf["lsh_hash"]
     for op in STORE_KERNELS:
         counts[op] += counts_store[op]
+    for op in SERVE_KERNELS:
+        counts[op] += counts_serve[op]
     all_jobs = {**jobs, **cf_jobs_out,
                 "lsh phase": {"launches": {op: counts_lsh[op]
                                            for op in LSH_KERNELS}},
                 "store phase": {"launches": {op: counts_store[op]
                                              for op in STORE_KERNELS}},
+                "serve phase": {"launches": {op: counts_serve[op]
+                                             for op in SERVE_KERNELS}},
                 **lm_jobs}
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device="cuda")
     rows = [kernel_row(torch, ref, topk_stream, ops, op, probe.calls[op],

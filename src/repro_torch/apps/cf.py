@@ -439,10 +439,11 @@ class CFServable(serve_servable.LSHServableBase):
 
     def accuracy_proxy(self, stage1_out, refined_out, n: int) -> list[float]:
         """Mean absolute rating delta per active user, stage-1 vs refined
-        (0.0 = refinement left the predicted row unchanged)."""
-        s1 = stage1_out[0][:n].cpu().double()
-        s2 = refined_out[0][:n].cpu().double()
-        return [float(v) for v in (s2 - s1).abs().mean(dim=-1)]
+        (0.0 = refinement left the predicted row unchanged), in float64 on
+        the predictions' device: only the n deltas come to the host."""
+        s1 = stage1_out[0][:n].double()
+        s2 = refined_out[0][:n].double()
+        return (s2 - s1).abs().mean(dim=-1).cpu().tolist()
 
 
 # ---------------------------------------------------------------------------

@@ -18,10 +18,10 @@ store (``knn_mergeable_stats`` / ``knn_assemble``).
 """
 from __future__ import annotations
 
-import collections
 import dataclasses
 from functools import partial
 
+import numpy as np
 import torch
 
 from repro_torch.core import aggregate as agg_lib
@@ -566,15 +566,20 @@ class KNNServable(serve_servable.LSHServableBase):
     def accuracy_proxy(self, stage1_out, refined_out, n: int) -> list[float]:
         """1 - (top-k label multiset overlap / k) per query.  Padding slots
         (distance >= BIG/2) count on neither side; the denominator stays k,
-        so lost neighbours also count as divergence."""
-        d1, l1 = (t[:n].cpu().numpy() for t in stage1_out[:2])
-        d2, l2 = (t[:n].cpu().numpy() for t in refined_out[:2])
-        out = []
-        for i in range(n):
-            c1 = collections.Counter(l1[i][d1[i] < BIG / 2].tolist())
-            c2 = collections.Counter(l2[i][d2[i] < BIG / 2].tolist())
-            out.append(1.0 - sum((c1 & c2).values()) / self.k)
-        return out
+        so lost neighbours also count as divergence.  The label counts of
+        all n queries are taken at once, on the host."""
+        def label_counts(out):
+            d, labels = (t[:n].cpu().numpy() for t in out[:2])
+            live = d < BIG / 2
+            counts = np.zeros((n, self.n_classes), np.int64)
+            rows = np.broadcast_to(np.arange(n)[:, None], labels.shape)
+            np.add.at(counts, (rows, np.where(live, labels, 0)),
+                      live.astype(np.int64))
+            return counts
+
+        overlap = np.minimum(label_counts(stage1_out),
+                             label_counts(refined_out)).sum(axis=1)
+        return (1.0 - overlap / self.k).tolist()
 
 
 def accuracy(pred: torch.Tensor, truth: torch.Tensor) -> float:

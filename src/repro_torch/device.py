@@ -1,6 +1,8 @@
 """Where the port runs: on the card unless the caller asks for the CPU."""
 from __future__ import annotations
 
+from typing import Any, Iterator
+
 import torch
 
 
@@ -28,3 +30,27 @@ def to_device(device: str | torch.device, *arrays):
     there already."""
     dev = resolve(device)
     return (dev, *(torch.as_tensor(a, device=dev) for a in arrays))
+
+
+def tensors(tree: Any) -> Iterator[torch.Tensor]:
+    """The tensors of a tree of tuples, lists and dicts (other leaves are
+    skipped)."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, (tuple, list)):
+        for item in tree:
+            yield from tensors(item)
+    elif isinstance(tree, dict):
+        for item in tree.values():
+            yield from tensors(item)
+
+
+def block_until_ready(tree: Any) -> Any:
+    """Wait until the card has finished every CUDA tensor of ``tree``, on
+    each tensor's own device (``torch.cuda.synchronize()`` alone waits on
+    the current device, which another thread may not share); returns
+    ``tree``.  Without it a clock read after a launch times the launch, not
+    the work."""
+    for dev in {t.device for t in tensors(tree) if t.device.type == "cuda"}:
+        torch.cuda.synchronize(dev)
+    return tree

@@ -36,7 +36,7 @@ KERNELS = {
     "cf_weights": cf_weights_cuda,
     "cf_refine": cf_refine_cuda,
     "agg_refine_attention": agg_refine_attention_cuda,
-    "aggregated_attention": aggregated_attention_cuda,
+    "aggregated_attention_decode": aggregated_attention_cuda,
 }
 
 
@@ -47,6 +47,12 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict[str, int]:
     return {name: wrapper.launches for name, wrapper in KERNELS.items()}
+
+
+def dispatch_path(t: torch.Tensor) -> str:
+    """The path a call on this tensor takes: ``"cuda"`` (the kernel) or
+    ``"ref"`` (the plain version)."""
+    return "cuda" if _on_card(t) else "ref"
 
 
 def _on_card(t: torch.Tensor) -> bool:
@@ -63,7 +69,8 @@ def _on_card(t: torch.Tensor) -> bool:
 # When a probe is installed, every op call goes through
 # ``probe.timed(op_name, fn, args, kwargs)``; the probe synchronises the card
 # (torch.cuda.synchronize) around the calls it times.  With no probe the
-# wrappers cost one ``is None`` test.
+# wrappers cost one ``is None`` test.  The op labels are the JAX package's
+# and the keys of ``KERNELS``.
 # ---------------------------------------------------------------------------
 
 _PROBE = None
@@ -209,7 +216,7 @@ def agg_refine_attention(
                                     scale=scale)
 
 
-@_probed("aggregated_attention")
+@_probed("aggregated_attention_decode")
 def aggregated_attention_decode(
     q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     bucket_of: torch.Tensor, mean_k: torch.Tensor, mean_v: torch.Tensor,

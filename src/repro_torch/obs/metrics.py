@@ -1,16 +1,26 @@
-"""Host-side metrics registry of the port: counters, gauges and bounded
-reservoirs, as ``src/repro/obs/metrics.py`` defines them (the part the
-decode engine uses; histograms and the Prometheus and schema-checked
-exports come with the observability slice).
+"""Typed metrics registry: counters, gauges, bounded histograms, reservoirs.
 
-Every metric is a *family*: a name, a help string and a fixed tuple of
-label names, holding one series per label-value combination
-(``family.labels(kind="knn")``).  A family declared with no labels exposes
-the series API directly, so ``registry.counter("x").inc()`` works.  A
-``Reservoir`` keeps a uniform sample (Vitter's algorithm R) of at most
-``capacity`` observations with exact count, sum, min and max, so memory
-stays flat under any load; its RNG is seeded per series, so exports are
-reproducible.
+Every metric is a *family* — a name + help string + a fixed tuple of label
+names — holding one series per label-value combination (``family.labels(
+kind="knn")``).  A family declared with no labels exposes the series API
+directly, so ``registry.counter("x").inc()`` works without ceremony.
+
+Two bounded sample types fix the unbounded-list growth the old
+``ServeMetrics`` had under sustained load:
+
+  * ``Histogram`` — fixed cumulative buckets (Prometheus semantics):
+    O(#buckets) memory forever, exact counts/sum, quantiles bounded by
+    bucket resolution;
+  * ``Reservoir`` — uniform reservoir sampling (Vitter's algorithm R) with
+    exact count/sum/min/max and interpolated percentiles over at most
+    ``capacity`` retained samples.  Deterministic RNG per series, so
+    exports are reproducible.
+
+Exports: ``snapshot()`` (JSON-able, schema pinned by
+``validate_snapshot``) and ``to_prometheus()`` (text exposition format).
+``default_registry()`` is the process-wide registry used by the kernel
+probes and the benchmark harness; serving metrics use a private registry
+per server so concurrent servers never share counters.
 """
 from __future__ import annotations
 
@@ -18,6 +28,14 @@ import math
 import random
 from typing import Iterable, Iterator, Sequence
 
+SCHEMA_VERSION = 1
+SNAPSHOT_KEYS = ("schema", "counters", "gauges", "histograms", "reservoirs")
+
+# Prometheus-style default latency buckets (seconds).
+DEFAULT_BUCKETS = (
+    0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+    1.0, 2.5, 5.0, 10.0,
+)
 DEFAULT_RESERVOIR = 1024
 
 
@@ -43,6 +61,10 @@ def percentile(values: Sequence[float], p: float) -> float:
     frac = rank - lo
     return xs[lo] + (xs[hi] - xs[lo]) * frac
 
+
+# ---------------------------------------------------------------------------
+# series types
+# ---------------------------------------------------------------------------
 
 class Counter:
     """Monotonically increasing count (requests, bytes, events)."""
@@ -77,6 +99,12 @@ class Gauge:
     def set(self, v: float) -> None:
         self.value = float(v)
 
+    def inc(self, v: float = 1.0) -> None:
+        self.value += v
+
+    def dec(self, v: float = 1.0) -> None:
+        self.value -= v
+
     def reset(self) -> None:
         self.value = 0.0
 
@@ -84,11 +112,60 @@ class Gauge:
         return {"value": self.value}
 
 
+class Histogram:
+    """Fixed cumulative-bucket histogram — O(#buckets) memory forever."""
+
+    kind = "histogram"
+    __slots__ = ("buckets", "bucket_counts", "count", "sum")
+
+    def __init__(self, buckets: Sequence[float] = DEFAULT_BUCKETS):
+        self.buckets = tuple(sorted(buckets))
+        if not self.buckets:
+            raise ValueError("histogram needs at least one bucket bound")
+        self.bucket_counts = [0] * (len(self.buckets) + 1)  # last = +Inf
+        self.count = 0
+        self.sum = 0.0
+
+    def observe(self, v: float) -> None:
+        self.count += 1
+        self.sum += v
+        for i, le in enumerate(self.buckets):
+            if v <= le:
+                self.bucket_counts[i] += 1
+                return
+        self.bucket_counts[-1] += 1
+
+    def cumulative(self) -> list[tuple[float, int]]:
+        """Prometheus-style cumulative (le, count) pairs ending at +Inf."""
+        out, acc = [], 0
+        for le, c in zip(self.buckets, self.bucket_counts):
+            acc += c
+            out.append((le, acc))
+        out.append((math.inf, self.count))
+        return out
+
+    def reset(self) -> None:
+        self.bucket_counts = [0] * (len(self.buckets) + 1)
+        self.count = 0
+        self.sum = 0.0
+
+    def to_dict(self) -> dict:
+        return {
+            "buckets": [
+                ["+Inf" if math.isinf(le) else le, c]
+                for le, c in self.cumulative()
+            ],
+            "count": self.count,
+            "sum": self.sum,
+        }
+
+
 class Reservoir:
     """Bounded uniform sample (algorithm R) with exact count/sum/min/max.
 
     Percentiles are computed over at most ``capacity`` retained samples, so
-    memory stays flat no matter how many observations arrive.
+    memory stays flat no matter how many observations arrive — the fix for
+    the old unbounded per-request latency lists.
     """
 
     kind = "reservoir"
@@ -150,6 +227,10 @@ def _none_if_nan(v: float) -> float | None:
     return None if math.isnan(v) else v
 
 
+# ---------------------------------------------------------------------------
+# labeled families
+# ---------------------------------------------------------------------------
+
 class Family:
     """Name + help + label names -> one series per label-value tuple.
 
@@ -190,6 +271,9 @@ class Family:
     def inc(self, v: float = 1.0) -> None:
         self._default().inc(v)
 
+    def dec(self, v: float = 1.0) -> None:
+        self._default().dec(v)
+
     def set(self, v: float) -> None:
         self._default().set(v)
 
@@ -200,14 +284,54 @@ class Family:
     def value(self) -> float:
         return self._default().value
 
+    # --- aggregation over series (summary helpers) ---
     def series(self) -> Iterator[tuple[dict[str, str], object]]:
         for key in sorted(self._children):
             yield dict(zip(self.label_names, key)), self._children[key]
+
+    def total(self) -> float:
+        """Sum of counter/gauge values (or observation counts) across series."""
+        out = 0.0
+        for _, s in self.series():
+            out += s.value if hasattr(s, "value") else s.count
+        return out
+
+    def merged_samples(self) -> list[float]:
+        """Reservoir families: pooled retained samples across all series."""
+        out: list[float] = []
+        for _, s in self.series():
+            out.extend(s.samples)
+        return out
+
+    def merged_stats(self) -> dict:
+        """Reservoir families: exact pooled count/sum/min/max + percentiles."""
+        count, total = 0, 0.0
+        lo, hi = math.inf, -math.inf
+        for _, s in self.series():
+            count += s.count
+            total += s.sum
+            if s.count:
+                lo = min(lo, s.min)
+                hi = max(hi, s.max)
+        samples = self.merged_samples()
+        return {
+            "count": count,
+            "sum": total,
+            "min": lo if count else math.nan,
+            "max": hi if count else math.nan,
+            "mean": total / count if count else math.nan,
+            "p50": percentile(samples, 50),
+            "p99": percentile(samples, 99),
+        }
 
     def reset(self) -> None:
         for s in self._children.values():
             s.reset()
 
+
+# ---------------------------------------------------------------------------
+# registry
+# ---------------------------------------------------------------------------
 
 class MetricsRegistry:
     """Owns metric families; re-declaring a name returns the existing family
@@ -241,6 +365,13 @@ class MetricsRegistry:
               labels: Iterable[str] = ()) -> Family:
         return self._declare(name, help, labels, Gauge)
 
+    def histogram(self, name: str, help: str = "",
+                  labels: Iterable[str] = (),
+                  buckets: Sequence[float] = DEFAULT_BUCKETS) -> Family:
+        return self._declare(
+            name, help, labels, lambda: Histogram(buckets)
+        )
+
     def reservoir(self, name: str, help: str = "",
                   labels: Iterable[str] = (),
                   capacity: int = DEFAULT_RESERVOIR) -> Family:
@@ -260,19 +391,103 @@ class MetricsRegistry:
         for fam in self._families.values():
             fam.reset()
 
+    # ------------------------------------------------------------------
+    # exports
+    # ------------------------------------------------------------------
     def snapshot(self) -> dict:
-        """JSON-able snapshot: {kind: {name: {label string: series}}}."""
-        out: dict = {}
+        """JSON-able snapshot grouped by metric kind (schema pinned)."""
+        out: dict = {
+            "schema": SCHEMA_VERSION,
+            "counters": [], "gauges": [], "histograms": [], "reservoirs": [],
+        }
         for fam in self.families():
-            out.setdefault(fam.kind + "s", {})[fam.name] = {
-                ",".join(f"{k}={v}" for k, v in labels.items()): s.to_dict()
-                for labels, s in fam.series()}
+            for labels, s in fam.series():
+                entry = {"name": fam.name, "help": fam.help,
+                         "labels": labels}
+                entry.update(s.to_dict())
+                out[fam.kind + "s"].append(entry)
         return out
 
+    def to_prometheus(self) -> str:
+        """Prometheus text exposition (reservoirs export as summaries)."""
+        lines: list[str] = []
+        for fam in self.families():
+            ptype = {"counter": "counter", "gauge": "gauge",
+                     "histogram": "histogram", "reservoir": "summary"}
+            if fam.help:
+                lines.append(f"# HELP {fam.name} {fam.help}")
+            lines.append(f"# TYPE {fam.name} {ptype[fam.kind]}")
+            for labels, s in fam.series():
+                base = _labels_str(labels)
+                if fam.kind in ("counter", "gauge"):
+                    lines.append(f"{fam.name}{base} {_num(s.value)}")
+                elif fam.kind == "histogram":
+                    for le, c in s.cumulative():
+                        le_s = "+Inf" if math.isinf(le) else _num(le)
+                        lines.append(
+                            f"{fam.name}_bucket"
+                            f"{_labels_str(labels, le=le_s)} {c}"
+                        )
+                    lines.append(f"{fam.name}_sum{base} {_num(s.sum)}")
+                    lines.append(f"{fam.name}_count{base} {s.count}")
+                else:  # reservoir -> summary quantiles
+                    for q in (0.5, 0.9, 0.99):
+                        v = s.percentile(q * 100)
+                        if not math.isnan(v):
+                            lines.append(
+                                f"{fam.name}"
+                                f"{_labels_str(labels, quantile=_num(q))}"
+                                f" {_num(v)}"
+                            )
+                    lines.append(f"{fam.name}_sum{base} {_num(s.sum)}")
+                    lines.append(f"{fam.name}_count{base} {s.count}")
+        return "\n".join(lines) + ("\n" if lines else "")
+
+
+def _labels_str(labels: dict[str, str], **extra: str) -> str:
+    items = {**labels, **extra}
+    if not items:
+        return ""
+    body = ",".join(f'{k}="{v}"' for k, v in sorted(items.items()))
+    return "{" + body + "}"
+
+
+def _num(v: float) -> str:
+    if v == int(v) and abs(v) < 1e15:
+        return str(int(v))
+    return repr(float(v))
+
+
+# ---------------------------------------------------------------------------
+# default (process-wide) registry + snapshot schema validation
+# ---------------------------------------------------------------------------
 
 _DEFAULT = MetricsRegistry()
 
 
 def default_registry() -> MetricsRegistry:
-    """The process-wide registry."""
+    """Process-wide registry (kernel probes, runtime events, BENCH embed)."""
     return _DEFAULT
+
+
+def validate_snapshot(snap: dict) -> list[str]:
+    """Validate a ``snapshot()`` dict; returns problems (empty == valid)."""
+    problems: list[str] = []
+    if tuple(sorted(snap)) != tuple(sorted(SNAPSHOT_KEYS)):
+        return [f"top-level keys {sorted(snap)} != {sorted(SNAPSHOT_KEYS)}"]
+    if snap["schema"] != SCHEMA_VERSION:
+        problems.append(f"schema version {snap['schema']}")
+    required = {
+        "counters": {"name", "help", "labels", "value"},
+        "gauges": {"name", "help", "labels", "value"},
+        "histograms": {"name", "help", "labels", "buckets", "count", "sum"},
+        "reservoirs": {"name", "help", "labels", "count", "sum", "min",
+                       "max", "mean", "p50", "p90", "p99"},
+    }
+    for kind, keys in required.items():
+        for i, entry in enumerate(snap[kind]):
+            if set(entry) != keys:
+                problems.append(
+                    f"{kind}[{i}] keys {sorted(entry)} != {sorted(keys)}"
+                )
+    return problems

@@ -1,25 +1,45 @@
-"""Span-tree tracing that deeper layers pick up from the context.
+"""Lightweight span-tree tracing for the anytime serving path.
 
-A ``Span`` is one named, timed unit of host work; spans nest into a tree
-rooted at the outermost open span.  A tracer owns one host clock
-(``perf_counter`` by default, injectable for tests).  Work on the card is
-asynchronous, so a layer that times it under a live tracer synchronises the
-card before it closes the span.
+A ``Span`` is one named, timed unit of host-side work; spans nest into a
+tree rooted at the outermost open span (one root per served batch in
+``repro_torch.serve``).  Two rules keep this honest on an asynchronous card:
 
-The tracer travels in a ``contextvars.ContextVar``: ``use_tracer`` installs
-one around a block and ``current_tracer()`` finds it, so no tracer parameter
-threads through the stack.  The default ``NULL_TRACER`` does nothing.
-This is the part of ``src/repro/obs/trace.py`` that the map/reduce engine
-and the aggregate store need (spans, already-elapsed spans and events);
-export and rendering come with the observability slice.
+  * **explicit clocks** — a tracer owns one host clock (``perf_counter`` by
+    default, injectable for tests); spans are only ever opened and closed
+    around points where the card has finished (a synchronise) in *host*
+    code, never around a bare launch (a clock read after a launch records
+    launch time, not run time);
+  * **explicit time spans** — work whose start predates the current span
+    (a request waiting in the queue) is recorded with ``add_span(name, t0,
+    t1)`` using clock values captured where they were meaningful.
+
+Propagation uses a ``contextvars.ContextVar``: the server installs its
+tracer with ``use_tracer`` around batch execution and deeper layers (the
+``MapReduce`` engine, the aggregate store) pick it up via
+``current_tracer()`` — no tracer parameter threads through the stack, and
+the default is ``NULL_TRACER`` whose every operation is a no-op, so the
+un-observed hot path stays lean.
+
+Export: ``to_jsonl`` (one flat JSON object per span, schema pinned by
+``validate_trace_jsonl``) and ``render`` (human-readable tree dump).
+Finished traces are kept in a bounded deque (``max_traces``) so a
+long-running server's tracer cannot grow without bound.
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
 import itertools
+import json
 import time
+from collections import deque
 from typing import Any, Callable, Iterator
+
+# Flat-span schema (one JSON object per line of to_jsonl). Bump SCHEMA_VERSION
+# when a key is added/removed; validate_trace_jsonl pins it in CI.
+SCHEMA_VERSION = 1
+SPAN_KEYS = ("schema", "trace", "span", "parent", "name", "t0", "t1",
+             "dur_s", "attrs")
 
 
 class Span:
@@ -42,7 +62,7 @@ class Span:
         self.children: list[Span] = []
 
     def set(self, **attrs: Any) -> "Span":
-        """Attach attributes (shuffle bytes, mode, ...)."""
+        """Attach attributes (grant eps, shuffle bytes, cache source, ...)."""
         self.attrs.update(attrs)
         return self
 
@@ -58,6 +78,19 @@ class Span:
 
     def find(self, name: str) -> list["Span"]:
         return [s for s in self.walk() if s.name == name]
+
+    def to_dict(self) -> dict:
+        return {
+            "schema": SCHEMA_VERSION,
+            "trace": self.trace_id,
+            "span": self.span_id,
+            "parent": self.parent_id,
+            "name": self.name,
+            "t0": self.t_start,
+            "t1": self.t_end,
+            "dur_s": self.duration_s,
+            "attrs": dict(self.attrs),
+        }
 
 
 class _NullSpan:
@@ -109,13 +142,21 @@ class Tracer:
 
     enabled = True
 
-    def __init__(self, clock: Callable[[], float] = time.perf_counter):
+    def __init__(
+        self,
+        clock: Callable[[], float] = time.perf_counter,
+        *,
+        max_traces: int = 4096,
+    ):
         self.clock = clock
+        self.max_traces = max_traces
+        self.dropped_traces = 0
         self._stack: list[Span] = []
-        self._finished: list[Span] = []
+        self._finished: deque[Span] = deque()
         self._span_ids = itertools.count(1)
         self._trace_ids = itertools.count(1)
 
+    # ------------------------------------------------------------------
     @contextlib.contextmanager
     def span(self, name: str, **attrs: Any) -> Iterator[Span]:
         """Open a child of the current span (or a new root), close on exit."""
@@ -141,10 +182,12 @@ class Tracer:
         return sp
 
     def event(self, name: str, **attrs: Any) -> Span:
-        """Zero-duration marker at the current clock (store lookups, ...)."""
+        """Zero-duration marker at the current clock (straggler signals,
+        store lookups, per-shard shuffle attribution)."""
         now = self.clock()
         return self.add_span(name, now, now, **attrs)
 
+    # ------------------------------------------------------------------
     def _open(self, name: str, t_start: float) -> Span:
         parent = self._stack[-1] if self._stack else None
         sp = Span(
@@ -165,7 +208,11 @@ class Tracer:
             self._stack[-1].children.append(sp)
         else:
             self._finished.append(sp)
+            if len(self._finished) > self.max_traces:
+                self._finished.popleft()
+                self.dropped_traces += 1
 
+    # ------------------------------------------------------------------
     def traces(self) -> list[Span]:
         """Finished root spans, oldest first."""
         return list(self._finished)
@@ -173,7 +220,50 @@ class Tracer:
     def reset(self) -> None:
         self._finished.clear()
         self._stack.clear()
+        self.dropped_traces = 0
 
+    def to_jsonl(self) -> str:
+        """One flat JSON object per span, depth-first per trace."""
+        lines = []
+        for root in self._finished:
+            for sp in root.walk():
+                lines.append(json.dumps(sp.to_dict(), sort_keys=True))
+        return "\n".join(lines) + ("\n" if lines else "")
+
+    def render(self, trace: Span | None = None) -> str:
+        """Human-readable tree dump of one trace (default: the latest)."""
+        roots = [trace] if trace is not None else list(self._finished)
+        if trace is None and roots:
+            roots = roots[-1:]
+        out: list[str] = []
+
+        def _fmt(sp: Span, prefix: str, is_last: bool, is_root: bool):
+            attrs = " ".join(f"{k}={_short(v)}" for k, v in sp.attrs.items())
+            stem = "" if is_root else prefix + ("└─ " if is_last else "├─ ")
+            out.append(
+                f"{stem}{sp.name}  {sp.duration_s * 1e3:.3f}ms"
+                + (f"  [{attrs}]" if attrs else "")
+            )
+            child_prefix = (
+                "" if is_root else prefix + ("   " if is_last else "│  ")
+            )
+            for i, child in enumerate(sp.children):
+                _fmt(child, child_prefix, i == len(sp.children) - 1, False)
+
+        for root in roots:
+            _fmt(root, "", True, True)
+        return "\n".join(out)
+
+
+def _short(v: Any) -> str:
+    if isinstance(v, float):
+        return f"{v:.4g}"
+    return str(v)
+
+
+# ---------------------------------------------------------------------------
+# context propagation
+# ---------------------------------------------------------------------------
 
 _CURRENT: contextvars.ContextVar[NullTracer | Tracer] = contextvars.ContextVar(
     "repro_torch_obs_tracer", default=NULL_TRACER
@@ -193,3 +283,38 @@ def use_tracer(tracer: NullTracer | Tracer) -> Iterator[NullTracer | Tracer]:
         yield tracer
     finally:
         _CURRENT.reset(token)
+
+
+# ---------------------------------------------------------------------------
+# schema validation (CI smoke + golden tests)
+# ---------------------------------------------------------------------------
+
+def validate_trace_jsonl(text: str) -> list[str]:
+    """Validate exported span lines against the pinned schema.
+
+    Returns a list of human-readable problems (empty == valid).  CI runs
+    this over the serving path's export and fails on drift.
+    """
+    problems: list[str] = []
+    for i, line in enumerate(text.splitlines()):
+        if not line.strip():
+            continue
+        try:
+            obj = json.loads(line)
+        except json.JSONDecodeError as e:
+            problems.append(f"line {i}: not JSON ({e})")
+            continue
+        if tuple(sorted(obj)) != tuple(sorted(SPAN_KEYS)):
+            problems.append(
+                f"line {i}: keys {sorted(obj)} != schema {sorted(SPAN_KEYS)}"
+            )
+            continue
+        if obj["schema"] != SCHEMA_VERSION:
+            problems.append(f"line {i}: schema version {obj['schema']}")
+        if not isinstance(obj["name"], str) or not obj["name"]:
+            problems.append(f"line {i}: bad span name")
+        if not isinstance(obj["attrs"], dict):
+            problems.append(f"line {i}: attrs not a dict")
+        if obj["t1"] < obj["t0"]:
+            problems.append(f"line {i}: t1 < t0")
+    return problems

@@ -884,3 +884,138 @@ def test_cuda_checksum_gives_the_same_number_twice(cuda):
     b = a.clone()
     b[[0, 1]] = a[[1, 0]]
     assert _checksum(b) != _checksum(a)
+
+
+# ---------------------------------------------------------------------------
+# serving on the card
+# ---------------------------------------------------------------------------
+
+def _card_server(dev, kind, seed=0, **kw):
+    """A one-servable server on the card with a fixed cost model (1 s of
+    budget buys eps 1.0) and ema 0: grants depend on deadlines only."""
+    from repro_torch.core.budget import BudgetPolicy, CostModel
+    from repro_torch.serve import (
+        ContinuousBatcher, DeadlineController, Server,
+    )
+
+    servable = _store_servable(dev, kind, seed)
+    ctl = DeadlineController(
+        BudgetPolicy(compression_ratio=20.0, eps_max=0.05,
+                     degrade_floor=0.004), ema=0.0)
+    ctl.set_model(kind, CostModel(c_stage2=1.0 / servable.n_points))
+    return Server([servable], controller=ctl,
+                  batcher=ContinuousBatcher(max_batch=8, pad_sizes=(8,)),
+                  **kw), servable
+
+
+def _card_payloads(servable, kind, n=12):
+    if kind == "knn":
+        return [(servable.train_x[i],) for i in range(n)]
+    return [(servable.ratings[i], servable.mask[i]) for i in range(n)]
+
+
+def _answers(resps):
+    out = []
+    for r in sorted(resps, key=lambda r: (r.rid, r.reexecuted)):
+        for ans in (r.stage1, r.refined):
+            out.append(ans if ans is None or isinstance(ans, int)
+                       else np.asarray(ans))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["knn", "cf"])
+def test_cuda_two_servers_answer_with_the_same_bits(cuda, kind):
+    runs = []
+    for _ in range(2):
+        server, servable = _card_server(cuda, kind)
+        for p in _card_payloads(servable, kind):
+            server.submit(kind, p, deadline_s=30.0)
+        resps = server.drain()
+        assert all(r.eps_granted == 0.05 and r.refined is not None
+                   for r in resps)
+        runs.append(_answers(resps))
+    for a, b in zip(*runs):
+        if isinstance(a, np.ndarray):
+            np.testing.assert_array_equal(a, b)
+        else:
+            assert a == b
+
+
+@pytest.mark.cuda
+def test_cuda_front_door_thread_serves_on_the_card(cuda):
+    """The worker thread runs the card's work: every request is answered,
+    with the answers a direct call on the main thread gives."""
+    import threading
+
+    from repro_torch.serve import FrontDoor, Response
+
+    server, servable = _card_server(cuda, "knn")
+    door = FrontDoor(server, default_deadline_s=30.0, queue_limit=64,
+                     poll_s=0.001)
+    seen = set()
+    run = servable.run
+
+    def recording_run(*args, **kwargs):
+        seen.add(threading.current_thread() is threading.main_thread())
+        return run(*args, **kwargs)
+
+    servable.run = recording_run
+    door.start()
+    try:
+        rids = [door.submit("knn", p)
+                for p in _card_payloads(servable, "knn", 16)]
+        got = [door.wait(rid, timeout_s=120.0) for rid in rids]
+    finally:
+        door.stop()
+    assert seen == {False}
+    assert all(isinstance(r, Response) for r in got)
+    prepared = servable.build(20.0)
+    q = servable.train_x[:16]
+    direct = run(prepared, (q,), refine_budget=0)
+    assert [r.stage1 for r in got] == direct[2].cpu().tolist()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["knn", "cf"])
+def test_cuda_probe_counts_equal_the_launch_counts(cuda, kind):
+    from repro_torch.obs.metrics import MetricsRegistry
+    from repro_torch.obs.probes import (
+        install_kernel_probe, uninstall_kernel_probe,
+    )
+
+    server, servable = _card_server(cuda, kind)
+    server.prewarm(kind)
+    reg = MetricsRegistry()
+    ops.reset_launch_counts()
+    probe = install_kernel_probe(reg)
+    try:
+        for p in _card_payloads(servable, kind):
+            server.submit(kind, p, deadline_s=30.0)
+        server.drain()
+    finally:
+        uninstall_kernel_probe()
+    launches = {op: n for op, n in ops.launch_counts().items() if n}
+    assert launches and probe.calls() == launches
+    assert {lbl["path"] for lbl, _ in
+            reg.get("kernel_calls_total").series()} == {"cuda"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["knn", "cf"])
+def test_cuda_calibrate_covers_the_cards_time(cuda, kind):
+    """``calibrate``'s stage-1 time is at least the CUDA-event time of the
+    same runs (its first four calls: a warm-up, then the three it times):
+    it times finished work, not launches.  The check is ``chip_smoke``'s
+    own (``EventRecorder``, ``calibrate_covers``)."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+
+    server, servable = _card_server(cuda, kind)
+    with chip_smoke.EventRecorder(torch, servable) as recorder:
+        server.calibrate(kind, batch=8)
+    out = chip_smoke.calibrate_covers(server, kind, recorder)
+    assert out["t_eps0_ms"] >= out["event_ms"]

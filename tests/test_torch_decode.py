@@ -363,7 +363,8 @@ def test_engine_meters_and_traces_its_steps(params):
     assert reg.get("lm_decode_tokens_total").value == 6   # 2 live slots
     assert reg.get("lm_prefill_total").value == 1
     assert reg.get("lm_decode_refine_frac").value == 0.25
-    steps = reg.snapshot()["reservoirs"]["lm_decode_step_latency_s"][""]
+    steps, = [e for e in reg.snapshot()["reservoirs"]
+              if e["name"] == "lm_decode_step_latency_s"]
     assert steps["count"] == 3 and steps["min"] == steps["max"] == 1.0
     names = [sp.name for sp in tracer.traces()]
     assert names == ["decode.prefill"] + ["decode.step"] * 3

@@ -24,6 +24,7 @@ from repro_torch.convert import (
 )
 from repro_torch.core import lsh
 from repro_torch.models import model as lm
+from repro_torch.serve.demo import build_demo_server
 from repro_torch.store import StreamingAggregate
 from repro_torch.data.synthetic import (
     holdout_split, make_mfeat_like, make_netflix_like,
@@ -45,7 +46,11 @@ def test_every_module_imports_without_jax_or_the_reference():
               "models.model", "serve.lm.engine", "obs.metrics",
               "kernels.agg_refine", "kernels.aggregated_attention",
               "store", "store.pyramid", "store.store", "store.persist",
-              "store.ingest", "serve.request", "serve.servable"):
+              "store.ingest", "serve.request", "serve.servable",
+              "core.budget", "obs.flight", "obs.probes", "obs.slo",
+              "obs.timeseries", "serve.cache", "serve.deadline",
+              "serve.demo", "serve.frontdoor", "serve.metrics",
+              "serve.scheduler", "serve.server", "serve.lm.servable"):
         assert f"repro_torch.{m}" in modules
     code = (
         "import importlib, sys\n"
@@ -66,26 +71,44 @@ def test_every_module_imports_without_jax_or_the_reference():
 
 
 def test_serve_and_store_hold_only_ported_modules():
-    """Every module of the port's ``serve`` and ``store`` packages has its
-    counterpart at the same path in the reference, and importing
-    ``repro_torch.serve`` loads none of them: the serving modules not yet
-    ported are not reached by the package."""
+    """Every module of the port's ``serve``, ``store`` and ``obs`` packages
+    has its counterpart at the same path in the reference, and
+    ``repro_torch.serve`` and ``repro_torch.obs`` export the reference's
+    names (``obs`` without the benchmark gate of ``obs/regression.py``,
+    which comes with the port's benchmarks)."""
     ref_root = ROOT / "src" / "repro"
-    for pkg in ("serve", "store"):
+    for pkg in ("serve", "store", "obs"):
         for path in (PORT / pkg).rglob("*.py"):
             rel = path.relative_to(PORT)
             assert (ref_root / rel).exists(), rel
+    assert not (PORT / "obs" / "regression.py").exists()
     code = (
         "import sys\n"
-        "import repro_torch.serve\n"
-        "print(sorted(m for m in sys.modules\n"
-        "             if m.startswith('repro_torch.')))\n"
+        "sys.modules['jax'] = None\n"
+        "import repro_torch.obs, repro_torch.serve\n"
+        "print(sorted(repro_torch.serve.__all__))\n"
+        "print(sorted(repro_torch.obs.__all__))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "['repro_torch.serve']"
+    serve_names, obs_names = out.stdout.strip().splitlines()
+    ref_serve = _all_of(ref_root / "serve" / "__init__.py")
+    ref_obs = _all_of(ref_root / "obs" / "__init__.py") - {
+        "DEFAULT_SPECS", "Finding", "MetricSpec", "Report", "WatchEntry",
+        "compare"}
+    assert serve_names == str(sorted(ref_serve))
+    assert obs_names == str(sorted(ref_obs))
+
+
+def _all_of(path: Path) -> set[str]:
+    """The names in a module's ``__all__``, read without importing it."""
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.Assign) and any(
+                getattr(t, "id", None) == "__all__" for t in node.targets):
+            return set(ast.literal_eval(node.value))
+    raise AssertionError(f"no __all__ in {path}")
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -190,6 +213,10 @@ def _entry_points():
             {"stats/counts": np.zeros(4), "stats/sums": np.zeros((4, 3)),
              "index/perm": np.arange(20), "index/offsets": np.zeros(5),
              "index/bucket_of": np.zeros(20)}, **kw),
+        "build_demo_server": lambda **kw: tuple(
+            s.train_x if s.name == "knn" else s.ratings
+            for s in build_demo_server(knn_points=64, cf_users=32,
+                                       **kw)[0].servables.values()),
         "knn_aggregates_from_numpy": lambda **kw: knn_aggregates_from_numpy(
             np.zeros((4, 3)), np.zeros(4), np.arange(20), np.zeros(5),
             np.zeros(20), np.zeros(4), np.zeros(4), np.zeros(4), **kw),

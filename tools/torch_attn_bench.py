@@ -104,7 +104,7 @@ def main() -> int:
         tag = f"B={b} rf={rf} valid_len={vl}"
         call = ((q, *flat, counts, refined), {"scale": scale,
                                               "valid_len": valid_len})
-        bench(f"aggregated_attention {tag}", "aggregated_attention",
+        bench(f"aggregated_attention {tag}", "aggregated_attention_decode",
               lambda: ops.aggregated_attention_decode(*call[0], **call[1]),
               call)
         if r > 0:

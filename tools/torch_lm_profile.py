@@ -42,7 +42,7 @@ ROOT = Path(__file__).resolve().parent.parent
 KERNEL_NAMES = {
     "distance_topk": ("distance_topk",),
     "agg_refine_attention": ("agg_refine",),
-    "aggregated_attention": ("aggregated_attention",),
+    "aggregated_attention_decode": ("aggregated_attention",),
 }
 
 
