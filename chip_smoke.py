@@ -111,6 +111,42 @@ What it does, in order:
      prints, besides the latencies and grants, each batch's host time
      outside its servable runs (from the spans) and its span over the
      grant's predicted time;
+   * the runtime (``repro_torch.runtime``), after the serve phase:
+     ``sharded_knn`` splits the kNN data, whole, into 8 failure domains
+     (one generator seed a domain) over one ``AggregateStore`` at ratio
+     100, k 5, eps 0.01, behind a ``Server`` whose grants are eps_max and
+     whose 5 s deadline leaves a hedge its room; 12 waves of 64 test
+     queries through a ``ChaosInjector`` schedule: domain 3 killed at a
+     stage 1 (two partial waves, then restored from the snapshot saved
+     after the first wave), domain 5 slowed 8x in a stage 2, domain 3
+     killed again and its snapshot marked corrupt (rebuilt).  Checked:
+     one terminal answer a request; ``partial_shards`` (3,) on each batch
+     while domain 3 is dead and () otherwise; every run's merged output
+     (distances, labels, votes, bounds) the bits of ``merge_topk`` and
+     ``majority_vote`` over its live domains' direct ``KNNServable.run``
+     at the same budget, so the recovered waves have the full fleet's
+     bits; one recovery restored and one rebuilt; the slowed domain
+     hedged and the hedge won; each merge one ``candidate_topk`` launch;
+     five kernels launched.  It prints the batch p50 healthy, partial,
+     hedged and recovering, the recoveries, hedges and the snapshot's
+     save and restore ms;
+   * training, after the kernels are held (it runs none of them): qwen3-8b
+     at its published widths, 2 layers deep (1.63 B parameters, bf16
+     weights, f32 AdamW moments), ``make_train_step`` on 6
+     ``TokenPipeline`` batches of 1 x 2,048 tokens (the blockwise
+     attention path), then 4 steps on one batch: finite losses, the
+     repeated batch's falling; ``blockwise_sdpa``'s output and dq, dk, dv
+     at [1, 2048, 8, 4, 128] in f32, causal and with a 512 window, within
+     1e-4 (relative to each tensor's largest entry) of autograd through
+     the plain ``_sdpa``.  It prints step p50, tokens/s, peak memory;
+   * the supervisor: ``examples/train_lm.py``'s default model (d_model
+     256, 8 layers, f32) trained 30 steps under ``Supervisor`` (saves
+     every 10, a straggler at 5, a node failure at 25), plain and with
+     ``compress_topk`` at 0.01, each beside an uninterrupted run: one
+     restart, steps 20-24 re-executed with the same losses to the bit,
+     the final state the uninterrupted run's bits, an async save that
+     restores what it saved, a manifest that lists every leaf.  It
+     prints checkpoint bytes, save and restore ms;
 3. holds each kernel against its plain PyTorch version (``kernels/ref.py``)
    on the very inputs the paths gave it, at every shape it was called with
    (the serve phase's: one batch of each kNN and CF wave held against a
@@ -127,9 +163,10 @@ What it does, in order:
 4. checks the end-to-end answers of the three paths on a small input
    against the same functions run on the CPU, and that aggregation gives
    identical bits on two runs;
-5. prints the accuracies and RMSEs, one JSON line ``{"kernels": [...]}``,
-   the card's name and power limit from nvidia-smi, and as its last line
-   ``{"ok": true, "device": {...}}``.
+5. prints the accuracies and RMSEs, a JSON line a phase (the fleet,
+   train and supervisor lines with the card's name and power limit), one
+   JSON line ``{"kernels": [...]}``, the card's name and power limit from
+   nvidia-smi, and as its last line ``{"ok": true, "device": {...}}``.
 
 Tolerances: kNN distances agree within rtol 1e-4 plus atol 1e-4 (fp32 sums
 in another order; the JAX package's own kernel tests use the same).  Labels
@@ -268,6 +305,46 @@ LM_SERVE_NEW = 4
 LM_SERVE_SLOTS = 2
 DOOR_BURST = 32               # requests a tenant sends through the front door
 DOOR_B = dict(rate=20.0, burst=4.0)
+
+# The runtime (fleet phase): the kNN data, whole, in N_SHARDS failure
+# domains over one AggregateStore, at the jobs' ratio, k and eps 0.01,
+# behind a Server; each wave one batch of FLEET_BATCH test queries (stage 1
+# and stage 2: two runs).  A killed shard recovers FLEET_RECOVERY_RUNS runs
+# (two waves) later; the slowed shard runs FLEET_SLOW_FACTOR times slower.
+FLEET_BATCH = 64
+FLEET_DEADLINE_S = 5.0
+FLEET_SEED = 50
+FLEET_KILLED = 3
+FLEET_SLOWED = 5
+FLEET_SLOW_FACTOR = 8.0
+FLEET_MAX_STALL_S = 1.0       # the slowed run takes its whole 8x (the
+                              # runtime's default caps a stall at 50 ms)
+FLEET_RECOVERY_RUNS = 4
+FLEET_PLAN = ("warm", "healthy", "healthy", "kill", "partial", "restored",
+              "slow", "kill", "partial", "rebuilt", "healthy", "healthy")
+FLEET_KERNELS = ("distance_topk", "candidate_topk", "knn_distance",
+                 "refine_distances", "lsh_hash")
+# The training path (train phase): qwen3-8b at its published widths, depth
+# cut from 36 to TRAIN_LAYERS (1.63 B parameters: bf16 weights and grads
+# and f32 moments take 19.6 GB; 36 layers would not fit one card), one
+# sequence of TRAIN_SEQ tokens a step (the blockwise attention path).
+TRAIN_LAYERS = 2
+TRAIN_SEQ = 2048
+TRAIN_STEPS = 6
+TRAIN_REPEAT = 4
+TRAIN_LR = 3e-4
+BLOCKWISE_SHAPE = (1, 2048, 8, 4, 128)   # [B, S, Hkv, G, hd], f32
+BLOCKWISE_WINDOW = 512
+BLOCKWISE_TOL = 1e-4          # relative to each tensor's largest entry
+# The supervisor phase: examples/train_lm.py's default model and batch
+# (8 x 128 tokens), its run cut to SUP_STEPS steps.
+SUP_STEPS = 30
+SUP_SAVE_EVERY = 10
+SUP_STRAGGLER = 5
+SUP_FAILURE = 25
+SUP_COMPRESS = 0.01
+SUP_BATCH = 8
+SUP_SEQ = 128
 
 KNN_KERNELS = ("distance_topk", "candidate_topk", "knn_distance",
                "refine_distances", "lsh_hash")
@@ -2480,6 +2557,478 @@ def print_serve(summary):
           f"(torch.cuda.max_memory_allocated)")
 
 
+# ---------------------------------------------------------------------------
+# the runtime: the kNN data in failure domains behind a Server
+# ---------------------------------------------------------------------------
+
+def _p50(values) -> float | None:
+    return statistics.median(values) if values else None
+
+
+def fleet_phase(torch, ops, probe, knn_data, *, batch=FLEET_BATCH):
+    """``sharded_knn`` over the kNN data, whole, in N_SHARDS failure
+    domains on one AggregateStore, behind a ``Server``, through a
+    ChaosInjector schedule (FLEET_PLAN: a kill, a slowed shard, a kill
+    whose recovery finds the snapshot corrupt).  The first healthy wave
+    and the first partial one run with ``probe`` on, tagged "fleet", so
+    that the kernels' rows check the domains' stage 1 and stage 2 and both
+    merges (all eight domains, and the seven live ones) at the shapes this
+    path gives them.  Returns (summary, launch counts of the path).  The
+    checks, made after the counts are read: one
+    terminal answer a request; ``partial_shards`` (FLEET_KILLED,) on each
+    batch while that shard is dead and () otherwise; every run's merged
+    output (top-k distances, labels, votes, bounds) the bits of
+    ``merge_topk`` and ``majority_vote`` over the live shards' direct
+    ``KNNServable.run`` at the same budget, so the recovered waves have the
+    full fleet's bits; recoveries ``restored`` then ``rebuilt``; the slowed
+    shard hedged and the hedge won; each merge one ``candidate_topk``
+    launch."""
+    import tempfile
+
+    from repro_torch.apps import knn
+    from repro_torch.core.budget import BudgetPolicy, CostModel
+    from repro_torch.obs.metrics import default_registry
+    from repro_torch.runtime import ChaosInjector, sharded_knn
+    from repro_torch.serve import ContinuousBatcher, DeadlineController, Server
+
+    t_phase = time.perf_counter()
+    train_x, train_y, test_x, test_y = knn_data
+    dev = train_x.device
+    snap = tempfile.TemporaryDirectory()
+    chaos = ChaosInjector(seed=FLEET_SEED)
+    fleet = sharded_knn(
+        train_x, train_y, n_shards=N_SHARDS, n_classes=N_CLASSES, k=K,
+        lsh_generators=[torch.Generator(dev).manual_seed(s)
+                        for s in range(N_SHARDS)],
+        chaos=chaos, recovery_batches=FLEET_RECOVERY_RUNS,
+        max_slow_sleep_s=FLEET_MAX_STALL_S, snapshot_dir=snap.name,
+        device=dev)
+    ctl = DeadlineController(BudgetPolicy(**SERVE_POLICY["knn"]), ema=0.0)
+    # Every batch priced far inside its deadline: the grant is eps_max and
+    # the deadline leaves the hedge its room; the shards' timeout (0.35 of
+    # it) is never reached, so no shard's budget is scaled down.
+    ctl.set_model("knn", CostModel(c_fixed=0.0, c_stage1=0.0, c_stage2=1e-9))
+    server = Server([fleet], controller=ctl, batcher=ContinuousBatcher(
+        max_batch=batch, pad_sizes=(batch,)))
+
+    runs, merges, restore_ms = [], [], []
+    run, merge = fleet.run, fleet.merge_fn
+
+    def recorded_run(prepared, payload, *, refine_budget):
+        out = run(prepared, payload, refine_budget=refine_budget)
+        runs.append({"step": fleet.step - 1, "budget": refine_budget,
+                     "prepared": prepared, "payload": payload, "out": out,
+                     "partial": fleet.last_partial_shards,
+                     "status": {r["shard"]: r["status"]
+                                for r in fleet.last_reports}})
+        return out
+
+    def counted_merge(outs):
+        before = ops.launch_counts()["candidate_topk"]
+        out = merge(outs)
+        merges.append(ops.launch_counts()["candidate_topk"] - before)
+        return out
+
+    store = fleet.shared_store()
+    restore = store.restore
+
+    def timed_restore(directory, servables):
+        t0 = time.perf_counter()
+        n = restore(directory, servables)
+        restore_ms.append(_ms_since(torch, t0))
+        return n
+
+    fleet.run, fleet.merge_fn, store.restore = (recorded_run, counted_merge,
+                                                timed_restore)
+    outcomes = default_registry().counter("runtime_shard_recoveries_total",
+                                          labels=("outcome",))
+    before = {o: outcomes.labels(outcome=o).value
+              for o in ("restored", "rebuilt")}
+    payloads = [(test_x[i],) for i in range(batch)]
+    waves, kills, save = [], 0, {}
+    to_capture = {"healthy", "partial"}
+    ops.set_probe(None)
+    ops.reset_launch_counts()
+    for kind in FLEET_PLAN:
+        if kind == "kill":
+            chaos.kill(FLEET_KILLED, fleet.step)
+            kills += 1
+            if kills == 2:    # this recovery finds the snapshot corrupt
+                chaos.corrupt_snapshot(FLEET_KILLED,
+                                       fleet.step + FLEET_RECOVERY_RUNS)
+        elif kind == "slow":   # in stage 2, the longer run
+            chaos.slow(FLEET_SLOWED, fleet.step + 1,
+                       factor=FLEET_SLOW_FACTOR)
+        first = len(runs)
+        captured = kind in to_capture
+        if captured:
+            to_capture.discard(kind)
+            probe.tag = "fleet"
+            ops.set_probe(probe)
+        rids = [server.submit("knn", p, FLEET_DEADLINE_S) for p in payloads]
+        t0 = time.perf_counter()
+        responses = server.drain()
+        if captured:
+            ops.set_probe(None)
+            probe.tag = None
+        waves.append({"kind": kind, "ms": _ms_since(torch, t0), "rids": rids,
+                      "responses": responses, "runs": runs[first:]})
+        if kind == "warm":   # the snapshot the recoveries read
+            t0 = time.perf_counter()
+            save["pyramids"] = fleet.save_snapshot(snap.name)
+            save["ms"] = _ms_since(torch, t0)
+    counts = ops.launch_counts()
+    save["bytes"] = sum(p.stat().st_size for p in Path(snap.name).rglob("*")
+                        if p.is_file())
+
+    # ---- checks ----
+    summary = fleet.summary()
+    dead = ("kill", "partial")
+    for i, w in enumerate(waves):
+        got = sorted(r.rid for r in w["responses"])
+        if got != sorted(w["rids"]) or any(r.reexecuted
+                                           for r in w["responses"]):
+            fail(f"fleet wave {i} ({w['kind']}): {len(got)} answers for "
+                 f"{len(w['rids'])} requests, or a re-execution")
+        want = (FLEET_KILLED,) if w["kind"] in dead else ()
+        bad = {r.partial_shards for r in w["responses"]} - {want}
+        if bad or any(r["partial"] != want for r in w["runs"]):
+            fail(f"fleet wave {i} ({w['kind']}): partial_shards {bad}, "
+                 f"expected {want}")
+        if len(w["runs"]) != 2:
+            fail(f"fleet wave {i}: {len(w['runs'])} runs, expected stage 1 "
+                 "and stage 2")
+    if summary["eps_scale"] != [1.0] * N_SHARDS:
+        fail(f"fleet: a shard's budget was scaled: {summary['eps_scale']}")
+    if summary["kills"] != 2 or summary["recoveries"] != 2:
+        fail(f"fleet: {summary['kills']} kills, {summary['recoveries']} "
+             "recoveries, expected 2 and 2")
+    got_outcomes = {o: outcomes.labels(outcome=o).value - before[o]
+                    for o in before}
+    if got_outcomes != {"restored": 1, "rebuilt": 1}:
+        fail(f"fleet: recoveries by outcome {got_outcomes}, expected one "
+             "restored and one rebuilt")
+    slow = next(w for w in waves if w["kind"] == "slow")
+    if slow["runs"][1]["status"].get(FLEET_SLOWED) != "hedged" \
+            or summary["hedge_wins"] < 1:
+        fail(f"fleet: the slowed shard was not hedged, or the hedge lost: "
+             f"{slow['runs'][1]['status']}, {summary}")
+    if set(merges) != {1}:
+        fail(f"fleet: candidate_topk launches a merge {merges}, expected 1")
+    prepared = waves[1]["runs"][0]["prepared"]
+    payload = waves[1]["runs"][0]["payload"]
+    alive = {False: list(range(N_SHARDS)),
+             True: [s for s in range(N_SHARDS) if s != FLEET_KILLED]}
+    direct = {}
+    for w in waves:
+        for r in w["runs"]:
+            key = (r["budget"], bool(r["partial"]))
+            if key not in direct:
+                direct[key] = merge([fleet.shards[s].run(
+                    prepared[s], payload, refine_budget=r["budget"])
+                    for s in alive[key[1]]])
+            same = all(torch.equal(a, b) for a, b in zip(r["out"],
+                                                         direct[key]))
+            if not same:
+                fail(f"fleet wave {w['kind']} step {r['step']} budget "
+                     f"{r['budget']}: the merged output is not the bits of "
+                     "the live shards' direct runs")
+    snap.cleanup()
+    acc = [knn.accuracy(torch.tensor([r.answer for r in sorted(
+        w["responses"], key=lambda r: r.rid)]), test_y[:batch])
+        for w in waves if w["kind"] == "healthy"]
+    ms = {kind: [w["ms"] for w in waves if w["kind"] in kinds] for kind, kinds
+          in (("healthy", ("healthy",)), ("partial", dead),
+              ("hedged", ("slow",)), ("recovering", ("restored", "rebuilt")))}
+    out = {
+        "batch_ms_p50": {k: _p50(v) for k, v in ms.items()},
+        "batch_ms": ms, "waves": [w["kind"] for w in waves],
+        "kills": summary["kills"], "recoveries": got_outcomes,
+        "hedges": summary["hedges"], "hedge_wins": summary["hedge_wins"],
+        "snapshot": {**save, "restore_ms": restore_ms},
+        "budgets": sorted({k[0] for k in direct}),
+        "merges": len(merges), "healthy_accuracy": acc,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    return out, counts
+
+
+def print_fleet(summary, smi):
+    p50 = summary["batch_ms_p50"]
+    print(f"fleet: batch p50 healthy {p50['healthy']:.2f} ms, partial "
+          f"{p50['partial']:.2f} ms, hedged {p50['hedged']:.2f} ms, "
+          f"recovering (restored, rebuilt) {summary['batch_ms']['recovering']}"
+          f" ms; kills "
+          f"{summary['kills']}, recoveries {summary['recoveries']}, hedges "
+          f"{summary['hedges']} (won {summary['hedge_wins']}); snapshot "
+          f"save {summary['snapshot']['ms']:.1f} ms "
+          f"({summary['snapshot']['bytes']} bytes), restore "
+          f"{summary['snapshot']['restore_ms']} ms; every run the bits of "
+          f"its live shards' direct runs at budgets {summary['budgets']}; "
+          f"{summary['merges']} merges of one candidate_topk launch each; "
+          f"{summary['phase_s']:.1f} s; card: {smi}")
+
+
+# ---------------------------------------------------------------------------
+# the training path: qwen3-8b's widths, 2 layers, and the blockwise backward
+# ---------------------------------------------------------------------------
+
+def blockwise_check(torch, layers, shape=BLOCKWISE_SHAPE, dev="cuda"):
+    """``blockwise_sdpa``'s output and hand-written dq, dk, dv against
+    autograd through the plain ``_sdpa`` on the same inputs, causal and
+    windowed; returns the largest relative errors, and fails past
+    BLOCKWISE_TOL."""
+    b, s, hkv, g, hd = shape
+    gen = torch.Generator(dev).manual_seed(7)
+    q, k, v = (torch.randn(sh, generator=gen, device=dev) for sh in
+               (shape, (b, s, hkv, hd), (b, s, hkv, hd)))
+    ct = torch.randn((b, s, hkv * g, hd), generator=gen, device=dev)
+    errs = {}
+    for window in (None, BLOCKWISE_WINDOW):
+        mask = (layers.sliding_window_mask(s, window, dev) if window
+                else layers.causal_mask(s, dev))[None]
+        grads = []
+        for blockwise in (True, False):
+            xs = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            if blockwise:
+                out = layers.blockwise_sdpa(*xs, scale=hd ** -0.5,
+                                            causal=True, window=window)
+            else:
+                out = layers._sdpa(xs[0].reshape(b, s, hkv * g, hd), xs[1],
+                                   xs[2], mask, scale=hd ** -0.5)
+            out.backward(ct)
+            grads.append([out.detach()] + [x.grad for x in xs])
+        name = f"window {window}" if window else "causal"
+        errs[name] = {n: float((a - w).abs().max() / w.abs().max())
+                      for n, a, w in zip(("out", "dq", "dk", "dv"), *grads)}
+        if max(errs[name].values()) > BLOCKWISE_TOL:
+            fail(f"blockwise_sdpa {name} at {list(shape)}: relative errors "
+                 f"{errs[name]} against autograd through _sdpa, tolerance "
+                 f"{BLOCKWISE_TOL}")
+    return errs
+
+
+def train_phase(torch, cfg=None, *, dev="cuda", check_shape=BLOCKWISE_SHAPE):
+    """qwen3-8b at its widths, TRAIN_LAYERS deep, bf16 weights and f32
+    AdamW moments: ``make_train_step`` on TRAIN_STEPS ``TokenPipeline``
+    batches of 1 x TRAIN_SEQ tokens (through its prefetch thread), then
+    TRAIN_REPEAT steps on one batch; then the blockwise check."""
+    from repro_torch import optim
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models import layers
+    from repro_torch.models import model as model_lib
+
+    t_phase = time.perf_counter()
+    cfg = cfg if cfg is not None else get_config(LM_ARCH).with_(
+        n_layers=TRAIN_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    model = model_lib.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                                  device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = optim.init_state(model_lib.param_tree(model))
+    step = make_train_step(cfg, optim.AdamWConfig(
+        lr=TRAIN_LR, warmup_steps=1, total_steps=TRAIN_STEPS + TRAIN_REPEAT))
+    pipe = TokenPipeline(cfg, global_batch=1, seq_len=TRAIN_SEQ, seed=0,
+                         device=dev)
+    blockwise_calls = []
+    blockwise = layers.blockwise_sdpa
+
+    def counted(*args, **kwargs):
+        blockwise_calls.append(args[0].shape)
+        return blockwise(*args, **kwargs)
+
+    layers.blockwise_sdpa = counted
+    it = pipe.iterate()
+    batches = [next(it) for _ in range(TRAIN_STEPS)]
+    it.close()
+    batches += [pipe.batch_at(TRAIN_STEPS)] * TRAIN_REPEAT
+    losses, ms = [], []
+    try:
+        for batch in batches:
+            t0 = time.perf_counter()
+            model, opt, metrics = step(model, opt, batch)
+            losses.append(float(metrics["loss"]))
+            ms.append(_ms_since(torch, t0))
+    finally:
+        layers.blockwise_sdpa = blockwise
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del model, opt, batches
+    gc.collect()
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"train: a loss is not finite: {losses}")
+    repeated = losses[TRAIN_STEPS:]
+    if not repeated[-1] < repeated[0]:
+        fail(f"train: the repeated batch's loss did not fall: {repeated}")
+    if not blockwise_calls:
+        fail("train: attention never took the blockwise path")
+    errs = blockwise_check(torch, layers, check_shape, dev)
+    p50 = _p50(ms[1:])
+    return {"params": n_params, "layers": cfg.n_layers, "seq": TRAIN_SEQ,
+            "losses": losses, "step_ms": ms, "step_ms_p50": p50,
+            "tokens_per_s": TRAIN_SEQ / (p50 / 1e3), "peak_gib": peak,
+            "blockwise_calls": len(blockwise_calls),
+            "blockwise_rel_err": errs,
+            "phase_s": time.perf_counter() - t_phase}
+
+
+def print_train(summary, smi):
+    print(f"train: {summary['params']} parameters ({summary['layers']} "
+          f"layers), 1 x {summary['seq']} tokens a step: step p50 "
+          f"{summary['step_ms_p50']:.1f} ms, {summary['tokens_per_s']:.0f} "
+          f"tokens/s, peak {summary['peak_gib']:.1f} GiB; losses "
+          f"{[round(x, 4) for x in summary['losses']]}; blockwise calls "
+          f"{summary['blockwise_calls']}, backward against autograd "
+          f"{summary['blockwise_rel_err']}; {summary['phase_s']:.1f} s; "
+          f"card: {smi}")
+
+
+# ---------------------------------------------------------------------------
+# the supervisor: checkpoint and restart
+# ---------------------------------------------------------------------------
+
+def supervisor_config(get_config):
+    """examples/train_lm.py's default model: qwen3-8b's family at d_model
+    256, 8 layers, 8 heads over 4 KV heads, d_ff 1024, vocab 4096, f32."""
+    return get_config(LM_ARCH, smoke=True).with_(
+        d_model=256, n_layers=8, n_heads=8, n_kv_heads=4, d_ff=1024,
+        vocab_size=4096, head_dim=32, dtype="float32")
+
+
+def _supervised(torch, cfg, directory, frac, failures, dev):
+    """One supervised run of SUP_STEPS steps: (final state, report, the
+    losses by step in execution order, the checkpointer, a step_fn that
+    takes the run on)."""
+    from repro_torch import optim
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch import train
+    from repro_torch.models import model as model_lib
+    from repro_torch.runtime import FailureInjector, Supervisor
+
+    model = model_lib.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                                  device=dev)
+    opt_cfg = optim.AdamWConfig(lr=3e-3, warmup_steps=max(SUP_STEPS // 10, 1),
+                                total_steps=SUP_STEPS, weight_decay=0.01)
+    step = train.make_train_step(cfg, opt_cfg, grad_compress_frac=frac)
+    pipe = TokenPipeline(cfg, global_batch=SUP_BATCH, seq_len=SUP_SEQ,
+                         device=dev)
+    state = {"params": model_lib.param_tree(model),
+             "opt": optim.init_state(model_lib.param_tree(model)),
+             "loss": torch.zeros((), device=dev)}
+    if frac:
+        state["ef"] = train.init_error_feedback(model, cfg)
+    losses = []
+
+    def step_fn(state, i):
+        model_lib.load_param_tree(model, state["params"])
+        batch = pipe.batch_at(i)
+        if frac:
+            _, opt, ef, m = step(model, state["opt"], state["ef"], batch)
+            new = {"ef": ef}
+        else:
+            _, opt, m = step(model, state["opt"], batch)
+            new = {}
+        losses.append((i, m["loss"]))
+        return {"params": model_lib.param_tree(model), "opt": opt,
+                "loss": m["loss"], **new}
+
+    ck = Checkpointer(directory, device=dev)
+    sup = Supervisor(ck, save_every=SUP_SAVE_EVERY,
+                     injector=FailureInjector(dict(failures)))
+    state, report = sup.run(state, step_fn, num_steps=SUP_STEPS)
+    return state, report, [(i, float(x)) for i, x in losses], ck, step_fn
+
+
+def supervisor_phase(torch, cfg=None, *, dev="cuda"):
+    """examples/train_lm.py's default run on the card: SUP_STEPS steps under
+    ``Supervisor`` (save every SUP_SAVE_EVERY, a straggler at
+    SUP_STRAGGLER, a node failure at SUP_FAILURE), plain and with
+    ``compress_topk`` at SUP_COMPRESS, each against an uninterrupted run.
+    Checked to the bit: the re-executed steps' losses equal their first
+    execution's and the final state equals the uninterrupted run's; an
+    async save restores what it saved; the manifest lists every leaf."""
+    import tempfile
+
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    cfg = cfg if cfg is not None else supervisor_config(get_config)
+    failures = {SUP_STRAGGLER: "straggler", SUP_FAILURE: "node_failure"}
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for frac in (0.0, SUP_COMPRESS):
+            name = f"compress {frac}" if frac else "plain"
+            state, report, losses, ck, step_fn = _supervised(
+                torch, cfg, f"{tmp}/{name}", frac, failures, dev)
+            straight, _, straight_losses, _, _ = _supervised(
+                torch, cfg, f"{tmp}/{name} straight", frac,
+                {SUP_STRAGGLER: "straggler"}, dev)
+            if report["restarts"] != 1 or report["final_step"] != SUP_STEPS:
+                fail(f"supervisor {name}: report {report}")
+            redo = range(SUP_FAILURE // SUP_SAVE_EVERY * SUP_SAVE_EVERY,
+                         SUP_FAILURE)
+            runs = {i: [x for j, x in losses if j == i] for i in redo}
+            if any(len(v) != 2 or v[0] != v[1] for v in runs.values()):
+                fail(f"supervisor {name}: re-executed losses {runs} differ "
+                     "from their first execution")
+            if dict(losses) != dict(straight_losses) or not all(
+                    torch.equal(a, b) for a, b in zip(
+                        tree_lib.leaves(state), tree_lib.leaves(straight))):
+                fail(f"supervisor {name}: the final state differs from the "
+                     "uninterrupted run's")
+            # an async save of the final state, overwritten at once by one
+            # more step, restores what it saved
+            want = [t.detach().clone() for t in tree_lib.leaves(state)]
+            t0 = time.perf_counter()
+            path = ck.save(SUP_STEPS + 1, state, blocking=False)
+            async_ms = _ms_since(torch, t0)
+            step_fn(state, SUP_STEPS)
+            t0 = time.perf_counter()
+            ck.wait()
+            wait_ms = _ms_since(torch, t0)
+            t0 = time.perf_counter()
+            restored, _ = ck.restore(state, step=SUP_STEPS + 1)
+            restore_ms = _ms_since(torch, t0)
+            if not all(torch.equal(a, b) for a, b in
+                       zip(tree_lib.leaves(restored), want)):
+                fail(f"supervisor {name}: the async save did not restore "
+                     "what it saved")
+            keys = json.loads((path / "manifest.json").read_text())["keys"]
+            if set(keys) != {k for k, _ in tree_lib.flatten_with_path(
+                    state)}:
+                fail(f"supervisor {name}: the manifest does not list every "
+                     "leaf")
+            t0 = time.perf_counter()
+            ck.save(SUP_STEPS + 2, state, blocking=True)
+            out[name] = {
+                "report": report, "losses": [x for _, x in losses],
+                "redone_steps": list(redo), "leaves": len(keys),
+                "checkpoint_bytes": sum(p.stat().st_size
+                                        for p in path.iterdir()),
+                "save_ms": _ms_since(torch, t0), "async_save_ms": async_ms,
+                "async_wait_ms": wait_ms, "restore_ms": restore_ms,
+            }
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def print_supervisor(summary, smi):
+    for name, s in summary.items():
+        if name == "phase_s":
+            continue
+        print(f"supervisor {name}: {s['report']}; steps "
+              f"{s['redone_steps'][0]}-{s['redone_steps'][-1]} re-executed "
+              f"to the bit, the final state the uninterrupted run's bits; "
+              f"checkpoint {s['checkpoint_bytes']} bytes in {s['leaves']} "
+              f"leaves, save {s['save_ms']:.1f} ms (async "
+              f"{s['async_save_ms']:.1f} + wait {s['async_wait_ms']:.1f}), "
+              f"restore {s['restore_ms']:.1f} ms; card: {smi}")
+    print(f"supervisor phase: {summary['phase_s']:.1f} s")
+
+
 def _shape(key, args, kwargs) -> str:
     shape = " ".join("x".join(str(d) for d in a.shape) for a in args
                      if hasattr(a, "shape"))
@@ -2692,6 +3241,13 @@ def main() -> int:
     lm_summary["guard"] = lm_guard_phase(torch)
     print(json.dumps({"lm": lm_summary}))
 
+    # ---- the runtime: the kNN data in failure domains behind a Server ----
+    fleet_summary, counts_fleet = fleet_phase(
+        torch, ops, probe, (train_x, train_y, test_x, test_y))
+    print_fleet(fleet_summary, smi)
+    print(json.dumps({"fleet": fleet_summary, "card": smi}))
+    check_launched("fleet", counts_fleet, FLEET_KERNELS)
+
     # ---- every kernel against its plain version ----
     counts = {**counts_knn, **{op: counts_cf[op] for op in CF_KERNELS},
               **{op: counts_lm[op] for op in ATTN_KERNELS}}
@@ -2701,6 +3257,8 @@ def main() -> int:
         counts[op] += counts_store[op]
     for op in SERVE_KERNELS:
         counts[op] += counts_serve[op]
+    for op in FLEET_KERNELS:
+        counts[op] += counts_fleet[op]
     all_jobs = {**jobs, **cf_jobs_out,
                 "lsh phase": {"launches": {op: counts_lsh[op]
                                            for op in LSH_KERNELS}},
@@ -2708,6 +3266,8 @@ def main() -> int:
                                              for op in STORE_KERNELS}},
                 "serve phase": {"launches": {op: counts_serve[op]
                                              for op in SERVE_KERNELS}},
+                "fleet phase": {"launches": {op: counts_fleet[op]
+                                             for op in FLEET_KERNELS}},
                 **lm_jobs}
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device="cuda")
     rows = [kernel_row(torch, ref, topk_stream, ops, op, probe.calls[op],
@@ -2719,6 +3279,19 @@ def main() -> int:
     cf_small_check(torch, cf, lsh, refine, ops, make_netflix_like,
                    holdout_split)
     lm_small_check(torch)
+
+    # ---- the training path and the supervisor (no kernel of the nine) ----
+    probe.calls.clear()     # the kernels' captured inputs, checked above
+    lm_probe.calls.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_summary = train_phase(torch)
+    print_train(train_summary, smi)
+    print(json.dumps({"train": train_summary, "card": smi}))
+    torch.cuda.empty_cache()
+    sup_summary = supervisor_phase(torch)
+    print_supervisor(sup_summary, smi)
+    print(json.dumps({"supervisor": sup_summary, "card": smi}))
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after start, "
           "the build included")

@@ -1,0 +1,2 @@
+"""Checkpoint substrate."""
+from repro_torch.checkpoint.checkpoint import Checkpointer  # noqa: F401

@@ -1,4 +1,6 @@
-"""Turn the JAX package's parameters, given as numpy arrays, into the port's.
+"""Turn the JAX package's parameters, given as numpy arrays, into the port's,
+and a language model's parameters and train state back into the JAX
+package's trees.
 
 JAX's PRNG bits cannot be reproduced in torch, so a comparison of the two
 packages draws once on the JAX side and hands the draws over: LSH
@@ -9,6 +11,13 @@ from a snapshot (``store_level0_from_numpy``), a language model's weights
 (``lm_cache_lsh_from_numpy``).  Arrays are copied; dtypes are those the
 port uses (float32 values, int32 indices and counts, the model's dtype for
 its weights).
+
+The other way, ``lm_tree`` turns anything keyed by the port's parameter
+names (the parameters, their gradients, AdamW's moments) into the JAX
+package's parameter tree, the pattern units stacked on a leading axis;
+``lm_params_to_numpy`` does it for a model, as numpy.  ``train_state_tree``
+and ``train_state_from_tree`` map a train state, ``{"params", "opt"}``,
+both ways, so a checkpoint of either package restores into the other.
 """
 from __future__ import annotations
 
@@ -22,6 +31,7 @@ from repro_torch.core.lsh import LSHConfig, LSHParams
 from repro_torch.device import resolve
 from repro_torch.models import layers
 from repro_torch.models import model as model_lib
+from repro_torch.optim import AdamState
 
 
 def _f32(x, dev) -> torch.Tensor:
@@ -124,15 +134,20 @@ def _layer_trees(tree: dict, cfg, head: str, units: str, tail: str) -> list:
 def _index(node, u: int):
     if isinstance(node, dict):
         return {k: _index(v, u) for k, v in node.items()}
+    if isinstance(node, torch.Tensor):
+        return node[u]
     return np.asarray(node)[u]
 
 
 def _load(param: torch.Tensor, arr, name: str) -> None:
-    arr = np.asarray(arr, dtype=np.float32)
+    """Copy ``arr`` (numpy, or a tensor of any dtype: a bf16 one keeps its
+    bits) into ``param``."""
+    if not isinstance(arr, torch.Tensor):
+        arr = torch.tensor(np.asarray(arr, dtype=np.float32))
     if tuple(arr.shape) != tuple(param.shape):
-        raise ValueError(f"{name}: shape {arr.shape}, expected "
+        raise ValueError(f"{name}: shape {tuple(arr.shape)}, expected "
                          f"{tuple(param.shape)}")
-    param.data.copy_(torch.tensor(arr).to(param.dtype))
+    param.data.copy_(arr.to(param.dtype))
 
 
 def lm_params_from_numpy(tree: dict, cfg, *,
@@ -143,17 +158,9 @@ def lm_params_from_numpy(tree: dict, cfg, *,
     model = model_lib.LM(
         layers.Init(None, dtype=layers.torch_dtype(cfg.dtype), device=dev),
         cfg)
-    _load(model.embed, tree["embed"], "embed")
-    _load(model.final_norm, tree["final_norm"], "final_norm")
-    if not cfg.tie_embeddings:
-        _load(model.lm_head, tree["lm_head"], "lm_head")
-    blocks = _layer_trees(tree, cfg, "head_blocks", "units", "tail_blocks")
-    for i, (blk, sub) in enumerate(zip(model.blocks, blocks)):
-        for name, param in blk.named_parameters():
-            node = sub
-            for part in name.split("."):
-                node = node[part]
-            _load(param, node, f"block {i} {name}")
+    named = lm_named(tree, cfg)
+    for name, param in model.named_parameters():
+        _load(param, named[name], name)
     return model
 
 
@@ -181,3 +188,145 @@ def _lsh_only(node):
     if hasattr(node, "lsh_a"):
         return {"lsh_a": node.lsh_a, "lsh_b": node.lsh_b}
     raise ValueError(f"not an aggregated cache: {type(node).__name__}")
+
+
+# ---------------------------------------------------------------------------
+# the port's model and train state -> the JAX package's trees
+# ---------------------------------------------------------------------------
+
+def _set(node: dict, path: list[str], value) -> None:
+    for part in path[:-1]:
+        node = node.setdefault(part, {})
+    node[path[-1]] = value
+
+
+def lm_tree(named: dict, cfg) -> dict:
+    """Tensors keyed by the port's parameter names (``param_tree``, its
+    gradients or moments) -> the JAX package's parameter tree of the same
+    tensors: ``embed``, ``final_norm``, ``lm_head``, ``head_blocks``,
+    ``units`` (each pattern block's leaves stacked over the units) and
+    ``tail_blocks``."""
+    head_kinds, pat, n_units, tail_kinds = model_lib._stack_layout(cfg)
+    n_blocks = len(head_kinds) + n_units * len(pat) + len(tail_kinds)
+    blocks: list[dict] = [{} for _ in range(n_blocks)]
+    tree: dict = {}
+    for name, t in named.items():
+        parts = name.split(".")
+        if parts[0] == "blocks":
+            _set(blocks[int(parts[1])], parts[2:], t)
+        else:
+            tree[name] = t
+    n_head = len(head_kinds)
+
+    def stack(nodes):
+        if isinstance(nodes[0], dict):
+            return {k: stack([n[k] for n in nodes]) for k in nodes[0]}
+        return torch.stack(nodes)
+
+    tree["head_blocks"] = {str(i): blocks[i] for i in range(n_head)}
+    tree["units"] = {
+        f"b{j}": stack([blocks[n_head + u * len(pat) + j]
+                        for u in range(n_units)])
+        for j in range(len(pat))
+    } if n_units else {}
+    tail0 = n_head + n_units * len(pat)
+    tree["tail_blocks"] = {str(i): blocks[tail0 + i]
+                           for i in range(len(tail_kinds))}
+    return tree
+
+
+def lm_decayed(named: dict, cfg) -> dict[str, bool]:
+    """Which of the port's parameters (``param_tree``) AdamW decays: the
+    JAX package decays each leaf of its own tree with ``ndim >= 2``, and
+    there a pattern block's leaves are stacked over the units, so a unit's
+    norm weight is decayed while a head or tail block's is not."""
+    head_kinds, pat, n_units, _ = model_lib._stack_layout(cfg)
+    lo = len(head_kinds)
+    hi = lo + n_units * len(pat)
+    out = {}
+    for name, t in named.items():
+        parts = name.split(".")
+        stacked = parts[0] == "blocks" and lo <= int(parts[1]) < hi
+        out[name] = t.dim() + stacked >= 2
+    return out
+
+
+def lm_params_to_numpy(model, cfg) -> dict:
+    """The inverse of ``lm_params_from_numpy``: the port's ``LM`` -> the
+    JAX package's ``init_params`` tree as numpy, units stacked.  numpy has
+    no bfloat16: bf16 weights come out as float32 (the same values)."""
+    def host(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    return _map(host, lm_tree(model_lib.param_tree(model), cfg))
+
+
+def _map(fn, node):
+    if isinstance(node, dict):
+        return {k: _map(fn, v) for k, v in node.items()}
+    return fn(node)
+
+
+def lm_named(tree: dict, cfg) -> dict:
+    """The inverse of ``lm_tree``: a JAX-layout tree (numpy or tensors) ->
+    its leaves by the port's parameter names (a unit's slice of a stacked
+    leaf is a view)."""
+    names = model_lib.LM(layers.Init(None, dtype=torch.float32,
+                                     device=torch.device("meta")), cfg)
+    blocks = _layer_trees(tree, cfg, "head_blocks", "units", "tail_blocks")
+    out = {}
+    for name, _ in names.named_parameters():
+        parts = name.split(".")
+        node = tree
+        if parts[0] == "blocks":
+            node, parts = blocks[int(parts[1])], parts[2:]
+        for part in parts:
+            node = node[part]
+        out[name] = node
+    return out
+
+
+def _f32_named(tree: dict, cfg, dev) -> dict[str, torch.Tensor]:
+    out = {}
+    for name, arr in lm_named(tree, cfg).items():
+        t = torch.zeros(tuple(np.shape(arr)), dtype=torch.float32,
+                        device=dev)
+        _load(t, arr, name)
+        out[name] = t
+    return out
+
+
+def train_state_tree(state: dict, cfg) -> dict:
+    """A train state of the port -> the JAX package's (its
+    ``examples/train_lm.py`` layout), for ``Checkpointer.save``.
+
+    ``state`` holds ``"params"`` (an ``LM``, or its ``param_tree``) and
+    ``"opt"`` (an ``AdamState`` keyed like ``param_tree``), and may hold
+    other entries (``"loss"``; ``"ef"``, already in the JAX layout), which
+    are kept.  Keys come out as ``params/units/b0/attn/wq``,
+    ``opt/.step``, ``opt/.m/embed``..."""
+    params = state["params"]
+    if isinstance(params, model_lib.LM):
+        params = model_lib.param_tree(params)
+    opt = state["opt"]
+    return {**state, "params": lm_tree(params, cfg),
+            "opt": AdamState(step=opt.step, m=lm_tree(opt.m, cfg),
+                             v=lm_tree(opt.v, cfg))}
+
+
+def train_state_from_tree(tree: dict, cfg, *,
+                          device: str | torch.device = "cuda") -> dict:
+    """The inverse of ``train_state_tree``: a JAX-layout train state (numpy
+    or tensors: a restored checkpoint of either package) -> ``"params"``
+    the port's ``LM`` in ``cfg.dtype``, ``"opt"`` its ``AdamState``, other
+    entries as given."""
+    dev = resolve(device)
+    opt = tree["opt"]
+    step = opt.step if isinstance(opt.step, torch.Tensor) \
+        else torch.tensor(np.asarray(opt.step))
+    step = step.to(device=dev, dtype=torch.int32)
+    return {**tree,
+            "params": lm_params_from_numpy(tree["params"], cfg, device=dev),
+            "opt": AdamState(step=step, m=_f32_named(opt.m, cfg, dev),
+                             v=_f32_named(opt.v, cfg, dev))}

@@ -1,1 +1,1 @@
-"""Seeded synthetic datasets."""
+"""Data substrate: synthetic dataset generators + sharded input pipeline."""

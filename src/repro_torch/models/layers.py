@@ -1,5 +1,6 @@
 """Shared transformer layers of the port: norms, linears, RoPE, GQA attention
-with an exact KV cache, and the SwiGLU MLP, as ``src/repro/models/layers.py``
+over a full sequence (dense, or blockwise with its own backward) and with
+an exact KV cache, and the SwiGLU MLP, as ``src/repro/models/layers.py``
 computes them.
 
 Parameters live in ``nn.Module`` containers whose attribute names are the
@@ -192,6 +193,195 @@ def attention_decode(
     out = torch.einsum("bkgst,btkd->bskgd", probs, cache_v.float())
     out = out.reshape(b, 1, h * hd).to(x.dtype) @ p.wo
     return out, cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# full-sequence attention (training / prefill)
+# ---------------------------------------------------------------------------
+
+def _bw_chunks(s: int, t: int, q_chunk: int, kv_chunk: int, causal: bool,
+               window: int | None) -> tuple[int, int, list[tuple[int, int]]]:
+    """(q chunk, kv chunk, live block pairs): each chunk halved until it
+    divides its length; a pair that the causal mask or the window masks
+    whole is left out."""
+    qc = q_chunk
+    while s % qc:
+        qc //= 2
+    kc = kv_chunk
+    while t % kc:
+        kc //= 2
+
+    def block_live(qi, ki):
+        q_lo, q_hi = qi * qc, qi * qc + qc - 1
+        k_lo, k_hi = ki * kc, ki * kc + kc - 1
+        if causal and k_lo > q_hi:
+            return False
+        if window is not None and k_hi <= q_lo - window:
+            return False
+        return True
+
+    pairs = [(qi, ki) for qi in range(s // qc) for ki in range(t // kc)
+             if block_live(qi, ki)]
+    return qc, kc, pairs
+
+
+def _bw_mask(qi: int, ki: int, qc: int, kc: int, causal: bool,
+             window: int | None, device) -> torch.Tensor:
+    gq = qi * qc + torch.arange(qc, device=device)
+    gk = ki * kc + torch.arange(kc, device=device)
+    mask = torch.ones((qc, kc), dtype=torch.bool, device=device)
+    if causal:
+        mask &= gk[None, :] <= gq[:, None]
+    if window is not None:
+        mask &= gk[None, :] > gq[:, None] - window
+    return mask
+
+
+def _bw_forward(q, k, v, scale, causal, window, q_chunk, kv_chunk):
+    """q [b,s,hkv,g,hd], k [b,t,hkv,hd], v [b,t,hkv,dv] -> (out
+    [b,s,hkv,g,dv] f32, lse [b,hkv,g,s] f32): a running max and sum over
+    the live blocks."""
+    b, s, hkv, g, _ = q.shape
+    t, dv = k.shape[1], v.shape[-1]
+    qc, kc, pairs = _bw_chunks(s, t, q_chunk, kv_chunk, causal, window)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    m = torch.full((b, hkv, g, s), -1e30, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((b, hkv, g, s), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, s, hkv, g, dv), dtype=torch.float32,
+                      device=q.device)
+    for qi, ki in pairs:
+        qs, ks = slice(qi * qc, qi * qc + qc), slice(ki * kc, ki * kc + kc)
+        logits = torch.einsum("bskgd,btkd->bkgst", qf[:, qs], kf[:, ks]) \
+            * scale
+        mask = _bw_mask(qi, ki, qc, kc, causal, window, q.device)
+        logits = torch.where(mask, logits, -1e30)
+        m_old, l_old = m[..., qs], l[..., qs]
+        m_new = torch.maximum(m_old, logits.amax(dim=-1))
+        alpha = torch.exp(m_old - m_new)
+        p = torch.exp(logits - m_new[..., None])
+        p = torch.where(mask, p, 0.0)
+        l[..., qs] = l_old * alpha + p.sum(dim=-1)
+        pv = torch.einsum("bkgst,btkd->bskgd", p, vf[:, ks])
+        acc[:, qs] = acc[:, qs] * alpha.movedim(3, 1)[..., None] + pv
+        m[..., qs] = m_new
+    lse = m + torch.log(torch.clamp_min(l, 1e-30))
+    out = acc / torch.clamp_min(l.movedim(3, 1)[..., None], 1e-30)
+    return out, lse
+
+
+def _bw_backward(q, k, v, out, lse, dout, scale, causal, window, q_chunk,
+                 kv_chunk):
+    """FlashAttention-2-style backward: each live block recomputed from the
+    saved logsumexp, so memory stays O(S), never O(S^2)."""
+    s, t = q.shape[1], k.shape[1]
+    qc, kc, pairs = _bw_chunks(s, t, q_chunk, kv_chunk, causal, window)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    doutf = dout.float()
+    delta = (doutf * out).sum(dim=-1).movedim(1, 3)      # [b,hkv,g,s]
+    dq, dk, dvac = (torch.zeros_like(x) for x in (qf, kf, vf))
+    for qi, ki in pairs:
+        qs, ks = slice(qi * qc, qi * qc + qc), slice(ki * kc, ki * kc + kc)
+        qblk, kblk, vblk, do_q = qf[:, qs], kf[:, ks], vf[:, ks], doutf[:, qs]
+        logits = torch.einsum("bskgd,btkd->bkgst", qblk, kblk) * scale
+        mask = _bw_mask(qi, ki, qc, kc, causal, window, q.device)
+        p = torch.exp(logits - lse[..., qs, None])
+        p = torch.where(mask, p, 0.0)                    # [b,k,g,qc,kc]
+        dvac[:, ks] += torch.einsum("bkgst,bskgd->btkd", p, do_q)
+        dp = torch.einsum("bskgd,btkd->bkgst", do_q, vblk)
+        ds = p * (dp - delta[..., qs, None]) * scale
+        dq[:, qs] += torch.einsum("bkgst,btkd->bskgd", ds, kblk)
+        dk[:, ks] += torch.einsum("bkgst,bskgd->btkd", ds, qblk)
+    return dq.to(q.dtype), dk.to(k.dtype), dvac.to(v.dtype)
+
+
+class _BlockwiseSDPA(torch.autograd.Function):
+    """``jax.custom_vjp`` of ``_bw_sdpa``: the forward saves (q, k, v, out,
+    lse), the backward recomputes each block from them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal, window, q_chunk, kv_chunk):
+        out, lse = _bw_forward(q, k, v, scale, causal, window, q_chunk,
+                               kv_chunk)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.opts = (scale, causal, window, q_chunk, kv_chunk)
+        return out.to(q.dtype)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _bw_backward(q, k, v, out, lse, dout, *ctx.opts)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def blockwise_sdpa(q, k, v, *, scale: float, causal: bool,
+                   window: int | None = None, q_chunk: int = 256,
+                   kv_chunk: int = 512) -> torch.Tensor:
+    """Flash-style blockwise attention with static causal block skipping.
+
+    q: [B,S,Hkv,G,hd]; k/v: [B,T,Hkv,hd] (dv may differ from hd).  Memory is
+    O(S + chunk^2) in forward AND backward (the backward recomputes blocks
+    from the saved logsumexp, FlashAttention-2 style); block pairs fully
+    masked by causality/windowing are skipped.  Returns [B,S,H,dv].
+    """
+    b, s, hkv, g, _ = q.shape
+    out = _BlockwiseSDPA.apply(q, k, v, scale, causal, window, q_chunk,
+                               kv_chunk)
+    return out.reshape(b, s, hkv * g, v.shape[-1])
+
+
+# full-sequence attention switches to the blockwise path above this size
+_BLOCKWISE_THRESHOLD = 2048
+
+
+def _sdpa(q, k, v, mask, *, scale: float) -> torch.Tensor:
+    """[B,S,H,hd] x [B,T,Hkv,hd] -> [B,S,H,hd] with GQA head grouping, in
+    float32, masked logits at -1e30."""
+    b, s, h, hd = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(b, s, hkv, h // hkv, hd)
+    logits = torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float()) * scale
+    if mask is not None:
+        logits = torch.where(mask[:, None, None, :, :], logits, -1e30)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v.float())
+    return out.reshape(b, s, h, hd).to(q.dtype)
+
+
+def causal_mask(s: int, device=None) -> torch.Tensor:
+    return torch.tril(torch.ones((s, s), dtype=torch.bool, device=device))
+
+
+def sliding_window_mask(s: int, window: int, device=None) -> torch.Tensor:
+    i = torch.arange(s, device=device)[:, None]
+    j = torch.arange(s, device=device)[None, :]
+    return (j <= i) & (j > i - window)
+
+
+def attention(p: Attention, x: torch.Tensor, cfg, *, positions: torch.Tensor,
+              causal: bool = True, window: int | None = None,
+              segment_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Full-sequence attention (training / prefill): the blockwise path
+    from ``_BLOCKWISE_THRESHOLD`` tokens on, the dense one below."""
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    if s >= _BLOCKWISE_THRESHOLD and segment_mask is None:
+        hkv = cfg.n_kv_heads
+        qg = q.reshape(b, s, hkv, cfg.n_heads // hkv, cfg.head_dim)
+        out = blockwise_sdpa(qg, k, v, scale=scale, causal=causal,
+                             window=window)
+        return out.reshape(b, s, -1) @ p.wo
+    if window is not None:
+        mask = sliding_window_mask(s, window, x.device)[None]
+    elif causal:
+        mask = causal_mask(s, x.device)[None]
+    else:
+        mask = torch.ones((1, s, s), dtype=torch.bool, device=x.device)
+    if segment_mask is not None:
+        mask = mask & segment_mask
+    out = _sdpa(q, k, v, mask, scale=scale)
+    return out.reshape(b, s, -1) @ p.wo
 
 
 # ---------------------------------------------------------------------------

@@ -1,17 +1,19 @@
-"""The port's model API for decoding: ``init_params``, ``init_caches`` and
-``serve_step``, as ``src/repro/models/model.py`` defines them.
+"""The port's model API: ``init_params``, ``forward``, ``loss_fn``,
+``prefill``, ``init_caches`` and ``serve_step``, as
+``src/repro/models/model.py`` defines them.
 
 The parameters are an ``LM`` module: the embedding, the final norm, the
 LM head and a ``ModuleList`` of blocks in stack order (head blocks, the
 repeated pattern units, tail blocks); the JAX package's ``lax.scan`` over
 stacked units becomes a loop over that list.  The decode caches are a list
-in the same order.  Full-sequence ``forward`` / ``prefill`` are not ported
-yet: the decode engine prefills token by token with ``serve_step``.
+in the same order.  ``param_tree`` names the parameters for the optimizer
+and the checkpointer; ``convert`` maps that to the JAX package's tree.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve
 from repro_torch.models import aggregated_kv, layers, transformer
@@ -73,6 +75,66 @@ def init_params(cfg, generator: torch.Generator, *,
     init = layers.Init(generator, dtype=layers.torch_dtype(cfg.dtype),
                        device=resolve(device))
     return LM(init, cfg)
+
+
+def param_tree(model: LM) -> dict[str, torch.Tensor]:
+    """The model's parameters by name (``blocks.0.attn.wq``...), the tree
+    the optimizer's state mirrors."""
+    return dict(model.named_parameters())
+
+
+def load_param_tree(model: LM, params: dict[str, torch.Tensor]) -> None:
+    """Point each of the model's parameters at the tensor of its name in
+    ``params`` (no copy), e.g. a restored checkpoint's."""
+    for name, p in param_tree(model).items():
+        t = params[name]
+        if t.shape != p.shape:
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                             f"{tuple(p.shape)}")
+        p.data = t.detach()
+
+
+def forward(model: LM, tokens: torch.Tensor, cfg, *,
+            remat: bool = False) -> torch.Tensor:
+    """Logits [B, S, V_pad] over the full sequence.  tokens: [B, S] int.
+    With ``remat`` each block's activations are recomputed in the backward
+    (``jax.checkpoint`` in the JAX package)."""
+    bsz, s = tokens.shape
+    x = model.embed[tokens.long()].to(layers.torch_dtype(cfg.dtype))
+    positions = torch.arange(s, device=tokens.device)[None].expand(bsz, s)
+    for blk, kind in zip(model.blocks, model.kinds):
+        if remat:
+            x = checkpoint(transformer.block_apply, blk, x, cfg, kind,
+                           positions=positions, use_reentrant=False)
+        else:
+            x = transformer.block_apply(blk, x, cfg, kind,
+                                        positions=positions)
+    x = layers.rmsnorm(x, model.final_norm, cfg.norm_eps)
+    head = model.embed.T if cfg.tie_embeddings else model.lm_head
+    return _mask_pad_logits(x @ head, cfg)
+
+
+def loss_fn(model: LM, batch: dict, cfg, *, remat: bool = True
+            ) -> torch.Tensor:
+    """Next-token cross-entropy.  batch: tokens [B,S], labels [B,S] and an
+    optional loss_mask [B,S]."""
+    logits = forward(model, batch["tokens"], cfg, remat=remat)
+    labels = batch["labels"].long()
+    lse = torch.logsumexp(logits.float(), dim=-1)                # [B,S]
+    # The JAX package picks the label's logit by a one-hot contraction with
+    # float32 accumulation: one term is non-zero, so a gather cast to
+    # float32 is the same value, without the [B,S,V] one-hot (0.62 GB in
+    # bf16 at qwen3-8b's vocab and 2,048 tokens).
+    picked = logits.gather(-1, labels[..., None])[..., 0].float()
+    ll = picked - lse
+    mask = batch.get("loss_mask")
+    mask = torch.ones_like(ll) if mask is None else mask.to(ll.dtype)
+    return -(ll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+
+
+def prefill(model: LM, tokens: torch.Tensor, cfg) -> torch.Tensor:
+    """Inference prefill: the last position's logits [B, V_pad]."""
+    return forward(model, tokens, cfg, remat=False)[:, -1]
 
 
 def draw_lsh(cfg, generator: torch.Generator, *,

@@ -1,6 +1,7 @@
-"""One decoder block of the port: its weights, its decode cache and one
-decode step, as ``src/repro/models/transformer.py`` computes them for the
-dense GQA stack (``attn`` blocks with a SwiGLU MLP).
+"""One decoder block of the port: its weights, its full-sequence application
+(train / prefill), its decode cache and one decode step, as
+``src/repro/models/transformer.py`` computes them for the dense GQA stack
+(``attn`` blocks with a SwiGLU MLP).
 
 A block's decode cache is an ``aggregated_kv.AggKVCache`` or
 ``BucketMajorKVCache`` when ``cfg.agg_kv`` is set (the layout from
@@ -52,6 +53,18 @@ def _ffn_apply(p: Block, x: torch.Tensor, cfg) -> torch.Tensor:
         return x
     h = layers.rmsnorm(x, p.norm2, cfg.norm_eps)
     return x + layers.mlp(p.mlp, h)
+
+
+def block_apply(p: Block, x: torch.Tensor, cfg, kind: str, *,
+                positions: torch.Tensor, causal: bool = True) -> torch.Tensor:
+    """Full-sequence application of one block (train / prefill): norm1,
+    attention, the residual, then the feed-forward.  x [B,S,d]; positions
+    [B,S]."""
+    _check_ported(cfg, kind)
+    h = layers.rmsnorm(x, p.norm1, cfg.norm_eps)
+    x = x + layers.attention(p.attn, h, cfg, positions=positions,
+                             causal=causal)
+    return _ffn_apply(p, x, cfg)
 
 
 def init_block_cache(cfg, kind: str, *, batch: int, s_max: int,

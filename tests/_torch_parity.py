@@ -190,3 +190,76 @@ def cf_sparse_inputs(seed, qn, un, ni, density, skew=0.0,
             x[first + 1] = 0.0
             m[first + 1] = 0.0
     return x[:qn], m[:qn], x[qn:], m[qn:]
+
+
+# ---------------------------------------------------------------------------
+# chip_smoke.py's phases rehearsed on the CPU
+# ---------------------------------------------------------------------------
+
+class CountingPlain:
+    """Stands in for a kernel's wrapper: counts its calls, runs the plain
+    version."""
+
+    def __init__(self, fn):
+        self.fn, self.launches = fn, 0
+
+    def __call__(self, *args, **kwargs):
+        self.launches += 1
+        return self.fn(*args, **kwargs)
+
+
+def plain_kernels(monkeypatch):
+    """Replace every kernel wrapper of ``repro_torch.kernels.ops`` by a
+    counting plain version and make ``ops`` take the kernels' path on CPU
+    tensors; stub the card's synchronisation and memory statistics.
+    Returns the wrappers by op."""
+    from repro_torch.kernels import ops, ref
+
+    plain = {
+        "knn_distance": lambda q, p: ref.knn_distance(q, p),
+        "distance_topk": lambda q, p, lab, v=None, *, k, metric="l2":
+            ref.distance_topk(q, p, lab, v, k=k, metric=metric),
+        "candidate_topk": lambda d, lab, i=None, j=None, *, k:
+            ref.candidate_topk(d, lab, i, j, k=k),
+        "refine_distances": lambda q, x, i, v, b=None, *, n_buckets=0:
+            ref.refine_distances(q, x, i, v),
+        "lsh_hash": ref.lsh_hash,
+        "cf_weights": ref.cf_weights,
+        "cf_refine": ref.cf_refine,
+        "agg_refine_attention": ref.agg_refine_attention,
+        "aggregated_attention_decode":
+            lambda q, k, v, bo, mk, mv, c, r, vl, *, scale:
+            ref.aggregated_attention_decode(q, k, v, bo, mk, mv, c, r,
+                                            scale=scale, valid_len=vl),
+    }
+    wrappers = {name: CountingPlain(fn) for name, fn in plain.items()}
+    for name, w in wrappers.items():
+        attr = next(a for a, v in vars(ops).items()
+                    if a.endswith("_cuda") and v is ops.KERNELS[name])
+        monkeypatch.setitem(ops.KERNELS, name, w)
+        monkeypatch.setattr(ops, attr, w)
+
+    def bucket_ids(d, a, b, w, *, base, factor=1):
+        wrappers["lsh_hash"].launches += 1
+        return ref.lsh_bucket_ids(d, a, b, w, base=base, factor=factor)
+
+    monkeypatch.setattr(ops, "lsh_bucket_ids_cuda", bucket_ids)
+    monkeypatch.setattr(ops, "_on_card", lambda t: True)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats",
+                        lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
+    return wrappers
+
+
+def chip_smoke():
+    """``chip_smoke.py`` as a module (it sits at the repository root)."""
+    import sys
+    from pathlib import Path
+
+    root = str(Path(__file__).resolve().parent.parent)
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke as cs
+    return cs

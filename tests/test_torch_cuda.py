@@ -1019,3 +1019,73 @@ def test_cuda_calibrate_covers_the_cards_time(cuda, kind):
         server.calibrate(kind, batch=8)
     out = chip_smoke.calibrate_covers(server, kind, recorder)
     assert out["t_eps0_ms"] >= out["event_ms"]
+
+
+# ---------------------------------------------------------------------------
+# the training path's attention backward and the checkpointer, on the card
+# ---------------------------------------------------------------------------
+
+BLOCKWISE_TOL = 1e-4   # relative to each gradient's largest entry, f32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 200),
+                                           (False, None)])
+def test_cuda_blockwise_backward_against_autograd(cuda, causal, window):
+    """``blockwise_sdpa``'s hand-written backward against autograd through
+    the plain ``_sdpa`` on the same inputs (chunks of 256 and 512, f32)."""
+    from repro_torch.models import layers
+
+    b, s, hkv, g, hd = 1, 1024, 4, 2, 64
+    r = rng(60)
+    q, k, v, ct = _on(cuda, normal(r, b, s, hkv, g, hd),
+                      normal(r, b, s, hkv, hd), normal(r, b, s, hkv, hd),
+                      normal(r, b, s, hkv * g, hd))
+    scale = hd ** -0.5
+    mask = (layers.sliding_window_mask(s, window, cuda) if window
+            else layers.causal_mask(s, cuda) if causal
+            else torch.ones(s, s, dtype=torch.bool, device=cuda))[None]
+    grads = []
+    for blockwise in (True, False):
+        xs = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        if blockwise:
+            out = layers.blockwise_sdpa(*xs, scale=scale, causal=causal,
+                                        window=window)
+        else:
+            out = layers._sdpa(xs[0].reshape(b, s, hkv * g, hd), xs[1],
+                               xs[2], mask, scale=scale)
+        out.backward(ct)
+        grads.append([out.detach()] + [x.grad for x in xs])
+    for name, got, want in zip(("out", "dq", "dk", "dv"), *grads):
+        err = float((got - want).abs().max() / want.abs().max())
+        assert err <= BLOCKWISE_TOL, (name, err)
+
+
+@pytest.mark.cuda
+def test_cuda_checkpoint_roundtrip_with_bf16_leaves(cuda, tmp_path):
+    """CUDA tensors, bf16 among them, saved asynchronously and overwritten
+    at once: the files hold the values at the save, and restore onto the
+    card with their bits."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.optim import AdamState
+
+    r = rng(61)
+    tree = {"params": {"embed": th(normal(r, 300, 64)).to(cuda,
+                                                         torch.bfloat16),
+                       "w": th(normal(r, 64, 64)).to(cuda)},
+            "opt": AdamState(step=torch.tensor(5, dtype=torch.int32,
+                                               device=cuda),
+                             m={"w": th(normal(r, 64, 64)).to(cuda)},
+                             v={"w": th(normal(r, 64, 64)).to(cuda)})}
+    want = [t.clone() for t in (tree["params"]["embed"], tree["params"]["w"])]
+    ck = Checkpointer(tmp_path)
+    ck.save(1, tree, blocking=False)
+    tree["params"]["embed"].add_(1.0)
+    tree["params"]["w"].mul_(2.0)
+    ck.wait()
+    restored, _ = ck.restore(tree)
+    emb, w = restored["params"]["embed"], restored["params"]["w"]
+    assert emb.device.type == "cuda" and emb.dtype == torch.bfloat16
+    assert torch.equal(emb.view(torch.int16), want[0].view(torch.int16))
+    assert torch.equal(w, want[1])
+    assert int(restored["opt"].step) == 5

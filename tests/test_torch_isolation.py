@@ -7,6 +7,7 @@ import pkgutil
 import shutil
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 import numpy as np
@@ -16,12 +17,17 @@ torch = pytest.importorskip("torch")  # the port's tests need PyTorch
 
 import repro_torch
 from repro_torch.apps import cf, knn
+from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs import get_config
 from repro_torch.convert import (
     cf_aggregates_from_numpy, knn_aggregates_from_numpy,
     lm_cache_lsh_from_numpy, lm_params_from_numpy, lsh_params_from_numpy,
-    store_level0_from_numpy,
+    store_level0_from_numpy, train_state_from_tree,
 )
+from repro_torch.data.pipeline import TokenPipeline
+from repro_torch.launch import train
+from repro_torch.optim import AdamState
+from repro_torch.runtime import sharded_knn
 from repro_torch.core import lsh
 from repro_torch.models import model as lm
 from repro_torch.serve.demo import build_demo_server
@@ -50,7 +56,11 @@ def test_every_module_imports_without_jax_or_the_reference():
               "core.budget", "obs.flight", "obs.probes", "obs.slo",
               "obs.timeseries", "serve.cache", "serve.deadline",
               "serve.demo", "serve.frontdoor", "serve.metrics",
-              "serve.scheduler", "serve.server", "serve.lm.servable"):
+              "serve.scheduler", "serve.server", "serve.lm.servable",
+              "tree", "checkpoint", "checkpoint.checkpoint", "runtime",
+              "runtime.chaos", "runtime.fault_tolerance", "runtime.shards",
+              "optim", "optim.optimizer", "optim.grad_compression",
+              "data.pipeline", "launch", "launch.train"):
         assert f"repro_torch.{m}" in modules
     code = (
         "import importlib, sys\n"
@@ -71,13 +81,15 @@ def test_every_module_imports_without_jax_or_the_reference():
 
 
 def test_serve_and_store_hold_only_ported_modules():
-    """Every module of the port's ``serve``, ``store`` and ``obs`` packages
-    has its counterpart at the same path in the reference, and
+    """Every module of the port's ``serve``, ``store``, ``obs``,
+    ``runtime``, ``checkpoint``, ``optim``, ``launch`` and ``data``
+    packages has its counterpart at the same path in the reference, and
     ``repro_torch.serve`` and ``repro_torch.obs`` export the reference's
     names (``obs`` without the benchmark gate of ``obs/regression.py``,
     which comes with the port's benchmarks)."""
     ref_root = ROOT / "src" / "repro"
-    for pkg in ("serve", "store", "obs"):
+    for pkg in ("serve", "store", "obs", "runtime", "checkpoint", "optim",
+                "launch", "data"):
         for path in (PORT / pkg).rglob("*.py"):
             rel = path.relative_to(PORT)
             assert (ref_root / rel).exists(), rel
@@ -161,7 +173,23 @@ def _entry_points():
             "units": {"b0": unit}, "tail_blocks": {}}
     draws = {"head": {}, "tail": {}, "units": {"b0": {
         "lsh_a": np.zeros((1, 32, 4)), "lsh_b": np.zeros((1, 4))}}}
+    state = {"params": tree, "opt": AdamState(step=np.int32(3), m=tree,
+                                              v=tree)}
     return {
+        "sharded_knn": lambda **kw: sharded_knn(
+            x, y, n_shards=2, n_classes=2, k=3,
+            lsh_generators=[torch.Generator(), torch.Generator()],
+            **kw).build(5.0),
+        "Checkpointer.restore": lambda **kw: _restore(**kw),
+        "TokenPipeline": lambda **kw: TokenPipeline(
+            smoke, global_batch=2, seq_len=4, **kw).batch_at(0),
+        "launch.train.synth_batch": lambda **kw: train.synth_batch(
+            torch.Generator(), smoke, batch=1, seq=4, **kw),
+        "launch.train.main": lambda **kw: tuple(train.main(
+            ["--steps", "1", "--batch", "1", "--seq", "4"]
+            + [a for k, v in kw.items() for a in (f"--{k}", v)]).parameters()),
+        "train_state_from_tree": lambda **kw: train_state_from_tree(
+            state, smoke.with_(n_layers=1), **kw)["opt"],
         "lm.init_params": lambda **kw: tuple(lm.init_params(
             smoke.with_(n_layers=1), torch.Generator(), **kw).parameters()),
         "lm.draw_lsh": lambda **kw: lm.draw_lsh(agg, torch.Generator(),
@@ -221,6 +249,14 @@ def _entry_points():
             np.zeros((4, 3)), np.zeros(4), np.arange(20), np.zeros(5),
             np.zeros(20), np.zeros(4), np.zeros(4), np.zeros(4), **kw),
     }
+
+
+def _restore(**kw):
+    """A checkpoint written from the CPU, restored through a checkpointer
+    built with ``kw``."""
+    with tempfile.TemporaryDirectory() as d:
+        Checkpointer(d, device="cpu").save(1, {"w": torch.ones(2)})
+        return Checkpointer(d, **kw).restore({"w": torch.zeros(2)})[0]
 
 
 @pytest.mark.parametrize("name", sorted(_entry_points()))
