@@ -65,8 +65,10 @@ What it does, in order:
      (``aggregated_attention_decode``), both with ``distance_topk``
      selecting the buckets in its batched regime (one launch a layer for
      the four sequences: 36 a decode step at every refine_frac above 0 and
-     36 a prefill token, which the run checks); per level tokens/s, step
-     p50/p99, KL and greedy-token agreement against rf 1.0
+     36 a prefill token, and as many of the layout's attention kernel, the
+     flat one at rf 0 too, which the run checks); per level tokens/s, step
+     p50/p99, prefill ms a token, peak memory, KL and greedy-token
+     agreement against rf 1.0
      (benchmarks/decode_bench.py) and the largest
      bucket count against the capacity; then decode_bench's exactness guard
      in f32 at full width, 2 layers deep: at rf 1.0 the engine's tokens
@@ -74,6 +76,27 @@ What it does, in order:
      in both layouts, and so do the serve phase's ``LMServable``'s at a
      full budget on the LM server's relaxed prompts (run after the serve
      phase, which serves the same bf16 weights);
+   * MoE and MLA decode (the moe phase, after the LM phase): deepseek-v2-236b
+     at its published widths (d_model 5,120, 128 heads, MLA ranks 1,536 /
+     512, rope 64, nope 128, v 128, 160 routed experts of 1,536 plus 2
+     shared, top-6, vocab 102,400) cut from 60 layers to 3 (the first
+     dense, 2 MoE: 9.33 B parameters), and moonshot-v1-16b-a3b (d_model
+     2,048, 16 heads of 128, 64 experts of 1,408 plus 2 shared, top-6,
+     vocab 163,840) cut from 48 to 4 (2.52 B), bf16, random from seed 0,
+     through ``DecodeEngine`` and the LM phase's path (4 slots, s_max
+     1024, 64 buckets of 32 slots): four 128-token prompts prefilled, then
+     one untimed and 6 timed decode steps at refine_frac 0, 0.25 and 1.0; deepseek in both layouts (its
+     absorbed latent decode: 1 KV head, 128 query heads, 576-wide keys,
+     512-wide values, the attention kernels' head and value tiles),
+     moonshot flat.  Checked as the LM phase: one attention launch and
+     one batched selection a layer, a prefill token and a decode step
+     (none at rf 0 but the flat kernel), every kernel's prefill inputs
+     captured, finite logits; then the LM phase's f32 guard,
+     deepseek-v2-236b 2 layers deep without capacity drops: at rf 1.0 the
+     engine's tokens equal the exact MLA decode's (``mla_decode``) and its
+     logits agree within 1e-4, in both layouts.  It prints tokens/s, step
+     p50, prefill ms a token and peak memory per model and layout, with
+     the card's name and power limit;
    * the serving stack (``repro_torch.serve`` and ``repro_torch.obs``):
      three ``Server``s, each under a live ``Tracer``, a ``FlightRecorder``,
      a 1 s rollup and ``default_objectives()``: kNN over all 2.3 M points
@@ -84,11 +107,16 @@ What it does, in order:
      on the LM phase's weights (``LMServable``, 16-token prompts, 4 tokens,
      eps_max 0.25, pad sizes 1 and 2).  kNN and CF: ``calibrate`` (its
      probe batch the probe row in all 64 rows, each pass timed with its
-     padding, unpacking and error bounds), ``ema = 0``, ``prewarm`` at
-     every pad size, ``reset_metrics``; SLO classes from the fitted model
+     padding, unpacking and error bounds under a scratch tracer, and the
+     batch's own host work outside its runs, its spans, grant, cache
+     lookup and accuracy proxy, fitted into ``c_fixed``: every class's
+     deadline holds that host time), ``ema = 0``, ``prewarm`` at every pad
+     size, ``reset_metrics``; SLO classes from the fitted model
      (relaxed 1.5 x ``deadline_for(eps_max)``, tight 1.15 x
      ``deadline_for`` at the grid value below eps_max, 0.005 / 0.04 / 0.16,
-     kNN's hopeless 0.25 x ``deadline_for(0)``); four waves of 64 requests
+     kNN's hopeless 0.25 x ``deadline_for(0)``, each raised to 10 % above
+     a power of two where it lay closer, so that a wave stays in one of
+     the batcher's log2 SLO classes); four waves of 64 requests
      a class drawn from the test queries (CF: the active users), a kNN wave
      with a loose ``max_error``, a wave under ``install_kernel_probe`` and
      one held against a direct ``run`` with its kernel calls captured; the
@@ -152,7 +180,8 @@ What it does, in order:
    (the serve phase's: one batch of each kNN and CF wave held against a
    direct run, and the LM server's relaxed wave: the first call of each
    shape, prefill at B 1 and decode at B 2 at rf 0 and 0.25, with 64
-   buckets over 1024 slots of which a few hold tokens),
+   buckets over 1024 slots of which a few hold tokens; the moe phase's
+   MLA and MoE-model shapes, each model, layout and level),
    and times kernel, plain version and, where one PyTorch call computes the
    same function, that call (``library_ms``); ``distance_topk`` at each of
    its shapes: the kNN shapes (wide regime) and the LM's batched ones (B 4
@@ -273,6 +302,30 @@ LM_GUARD_TOL = 1e-4           # benchmarks/decode_bench.py:130
 ATTN_TOL = 2e-5               # tests/test_kernels.py:108
 LM_CPU_TOL = 2e-5             # card vs CPU, smoke config, f32
 
+# MoE and MLA decode (moe phase): each model at its published widths, its
+# depth cut to the layers named here (the first_k_dense head block dense,
+# the rest MoE), bf16, random from seed 0, served by DecodeEngine as the LM
+# phase serves qwen3-8b (LM_SLOTS slots, LM_S_MAX, LM_COMPRESSION) in the
+# layouts named: MOE_PROMPT-token prompts prefilled, then MOE_STEPS decode
+# steps at each refine_frac of MOE_SWEEP after one untimed step.  The f32
+# guard: deepseek-v2-236b MOE_GUARD_LAYERS deep without capacity drops
+# (tests/test_models.py:48's no-drop variant: a batch of four routes other
+# tokens than the batch-1 exact decode), MOE_GUARD_PROMPTS prompts of
+# MOE_GUARD_PROMPT tokens and MOE_GUARD_NEW tokens each (cut from the LM
+# guard's four of 128 and 32: its prefill is host-bound).
+MOE_MODELS = (("deepseek-v2-236b", 3, ("bucket_major", "flat")),
+              ("moonshot-v1-16b-a3b", 4, ("flat",)))
+MOE_PROMPT = 128
+MOE_SWEEP = (0.0, 0.25, 1.0)
+MOE_STEPS = 6
+MOE_GUARD_ARCH = "deepseek-v2-236b"
+MOE_GUARD_LAYERS = 2
+MOE_GUARD_PROMPTS = 2
+MOE_GUARD_PROMPT = 32
+MOE_GUARD_NEW = 8
+MOE_NO_DROP = 100.0           # capacity_factor: every chosen expert keeps
+                              # every token (tests/test_models.py:48)
+
 # The serving stack: three servers, each over one servable that holds a
 # whole dataset (the deployment of one card): kNN over all N_TRAIN points
 # and CF over all CF_USERS users, sharing one AggregateStore, and qwen3-8b
@@ -300,6 +353,10 @@ SERVE_CLASSES = {"knn": ("relaxed", "tight", "hopeless"),
 # kind's classes share (PERF.md, PR 20).
 SERVE_KEEPS_EPS_MAX = ("knn",)
 SERVE_LOOSE_ERROR = 1.0       # kNN bounds lie in [0, 1]: every one meets it
+# A class's deadline lies at least this share above a power of two (the
+# batcher's SLO classes are log2 ones): a wave of SERVE_BATCH takes some
+# 0.3 ms to submit, a tenth of a relaxed kNN deadline's class.
+SLO_CLASS_MARGIN = 0.1
 LM_SERVE_PROMPT = 16
 LM_SERVE_NEW = 4
 LM_SERVE_SLOTS = 2
@@ -1668,21 +1725,29 @@ def lm_max_count(engine) -> tuple[int, int]:
 
 
 def lm_path(torch, ops, probe, engine_cls, model, cfg, layout, prompts,
-            jobs):
-    """One layout of the LM path: prefill every prompt, then at each
-    refine_frac re-insert the same prefixes and decode.  The kernels'
-    inputs are captured (cloned) at the first prompt's last position (the
-    batch-1 prefill shapes; each layer calls each kernel once a token, so
-    the probe lets (length - 1) x layers calls of a key pass first) and
-    during the untimed warm-up steps of each level.  Returns the per-level
-    summary and the path's launch counts."""
-
+            jobs, *, name="LM", sweep=LM_SWEEP, steps=LM_NEW_TOKENS - 1,
+            warm=LM_WARM_STEPS, dev="cuda", s_max=LM_S_MAX):
+    """One model and layout of the LM path: prefill every prompt at batch
+    1, then at each refine_frac of ``sweep`` re-insert the same prefixes,
+    take ``warm`` untimed decode steps and ``steps`` timed ones.  One
+    launch of the layout's attention kernel and one batched selection a
+    layer, a prefill token and a decode step (none of either at rf 0 but
+    the flat kernel, which takes the centroids too), else the run fails.
+    The kernels' inputs are captured (cloned) at the first prompt's last
+    position (the batch-1 prefill shapes; each layer calls each kernel
+    once a token, so the probe lets (length - 1) x layers calls of a key
+    pass first), and every kernel's must be, and during the untimed steps.
+    ``name`` heads the lines printed and (lower-cased) the ``jobs`` keys.
+    Returns the per-level summary and the path's launch counts."""
+    path, key = f"{name} {layout}", f"{name.lower()} {layout}"
     cfg = cfg.with_(agg_layout=layout)
-    engine = engine_cls(model, cfg, max_slots=LM_SLOTS, s_max=LM_S_MAX,
-                        generator=torch.Generator("cuda").manual_seed(7))
+    kernels = LM_KERNELS[layout]
+    torch.cuda.reset_peak_memory_stats()
+    engine = engine_cls(model, cfg, max_slots=LM_SLOTS, s_max=s_max,
+                        generator=torch.Generator(dev).manual_seed(7))
     ops.reset_launch_counts()
     prefixes, prefill_ms = [], []
-    probe.tag = f"{layout} prefill"
+    probe.tag = f"{path} prefill"
     probe.skip = (prompts.shape[1] - 1) * cfg.n_layers
     for i, prompt in enumerate(prompts):
         ops.set_probe(probe if i == 0 else None)
@@ -1692,55 +1757,53 @@ def lm_path(torch, ops, probe, engine_cls, model, cfg, layout, prompts,
     ops.set_probe(None)
     probe.skip = 0
     caught = {op for op, calls in probe.calls.items()
-              if any(key[0] == probe.tag for key in calls)}
-    if not caught >= set(LM_KERNELS[layout]):
-        fail(f"LM {layout}: prefill calls of "
-             f"{sorted(set(LM_KERNELS[layout]) - caught)} not captured")
-    jobs[f"lm {layout} prefill"] = {"ms": sum(prefill_ms),
-                                    "launches": ops.launch_counts()}
-    # one batched selection a layer: n_layers launches a token
-    sel_per_token = ops.launch_counts()["distance_topk"] / prompts.size
-    print(f"LM {layout}: prefill of {len(prompts)} x {prompts.shape[1]} "
-          f"tokens, batch 1: {[round(m, 1) for m in prefill_ms]} ms "
-          f"({sum(prefill_ms) / prompts.size:.2f} ms a token), "
-          f"distance_topk {sel_per_token:g} launches a token")
-    if sel_per_token != cfg.n_layers:
-        fail(f"LM {layout} prefill: {sel_per_token:g} distance_topk launches "
-             f"a token, expected one a layer ({cfg.n_layers})")
+              if any(k[0] == probe.tag for k in calls)}
+    if not caught >= set(kernels):
+        fail(f"{path}: prefill calls of {sorted(set(kernels) - caught)} not "
+             "captured")
+    counts = ops.launch_counts()
+    jobs[f"{key} prefill"] = {"ms": sum(prefill_ms), "launches": counts}
+    per_token = {op: counts[op] / prompts.size for op in kernels}
+    print(f"{path}: prefill of {len(prompts)} x {prompts.shape[1]} tokens, "
+          f"batch 1: {[round(m, 1) for m in prefill_ms]} ms "
+          f"({sum(prefill_ms) / prompts.size:.2f} ms a token), launches a "
+          f"token {per_token}")
+    if any(n != cfg.n_layers for n in per_token.values()):
+        fail(f"{path} prefill: {per_token} launches a token, expected one a "
+             f"layer ({cfg.n_layers})")
     ops.set_probe(probe)
-    for rf in LM_SWEEP:
-        probe.tag = f"{layout} rf={rf}"
-        lm_generate(torch, engine, prefixes, rf, LM_WARM_STEPS)
+    for rf in sweep:
+        probe.tag = f"{path} rf={rf}"
+        lm_generate(torch, engine, prefixes, rf, warm)
     ops.set_probe(None)
     probe.tag = None
 
     outs, levels = {}, {}
-    for rf in LM_SWEEP:
+    for rf in sweep:
         before = ops.launch_counts()
-        toks, logits, times = lm_generate(torch, engine, prefixes, rf,
-                                          LM_NEW_TOKENS - 1)
+        toks, logits, times = lm_generate(torch, engine, prefixes, rf, steps)
         after = ops.launch_counts()
-        launches = {op: after[op] - before[op] for op in LM_KERNELS[layout]}
-        per_step = {op: n / (LM_NEW_TOKENS - 1) for op, n in launches.items()}
-        # one batched selection a layer for the LM_SLOTS sequences
-        want = cfg.n_layers if rf > 0 else 0
-        if per_step["distance_topk"] != want:
-            fail(f"LM {layout} rf={rf}: {per_step['distance_topk']:g} "
-                 f"distance_topk launches a step, expected {want}")
-        jobs[f"lm {layout} rf={rf}"] = {"ms": sum(times),
-                                        "launches": launches}
+        launches = {op: after[op] - before[op] for op in kernels}
+        per_step = {op: n / steps for op, n in launches.items()}
+        want = {"distance_topk": cfg.n_layers if rf > 0 else 0,
+                kernels[1]: cfg.n_layers if rf > 0 or layout == "flat"
+                else 0}
+        if per_step != want:
+            fail(f"{path} rf={rf}: {per_step} launches a step, expected "
+                 f"{want}")
+        jobs[f"{key} rf={rf}"] = {"ms": sum(times), "launches": launches}
         outs[rf] = (toks, logits)
         worst, cap = lm_max_count(engine)
         q = statistics.quantiles(times, n=100, method="inclusive")
         levels[str(rf)] = {
-            "tokens_per_s": (LM_NEW_TOKENS - 1) * LM_SLOTS / sum(times) * 1e3,
+            "tokens_per_s": steps * LM_SLOTS / sum(times) * 1e3,
             "step_p50_ms": statistics.median(times), "step_p99_ms": q[98],
             "launches": launches, "launches_per_step": per_step,
             "step_bytes": engine.step_bytes(rf),
             "max_bucket_count": worst, "capacity": cap,
         }
     ref_toks, ref_logits = outs[1.0]
-    for rf in LM_SWEEP:
+    for rf in sweep:
         toks, logits = outs[rf]
         lv = levels[str(rf)]
         lv["kl_vs_rf1"] = lm_kl(torch, ref_logits, logits)
@@ -1748,8 +1811,8 @@ def lm_path(torch, ops, probe, engine_cls, model, cfg, layout, prompts,
         lv["kl_first_step"] = lm_kl(torch, ref_logits[:, 1], logits[:, 1])
         lv["token_agreement"] = float((toks == ref_toks).float().mean())
         if not bool(torch.isfinite(logits[..., :cfg.vocab_size]).all()):
-            fail(f"LM {layout} rf={rf}: non-finite logits")
-        print(f"LM {layout} rf={rf}: {lv['tokens_per_s']:.1f} tokens/s, "
+            fail(f"{path} rf={rf}: non-finite logits")
+        print(f"{path} rf={rf}: {lv['tokens_per_s']:.1f} tokens/s, "
               f"step p50 {lv['step_p50_ms']:.2f} ms p99 "
               f"{lv['step_p99_ms']:.2f} ms, KL vs rf 1.0 "
               f"{lv['kl_vs_rf1']:.4g} (first step "
@@ -1757,51 +1820,52 @@ def lm_path(torch, ops, probe, engine_cls, model, cfg, layout, prompts,
               f"{lv['token_agreement']:.3f}, launches {lv['launches']} "
               f"({lv['launches_per_step']} a step), "
               f"largest bucket {lv['max_bucket_count']} / {lv['capacity']}")
+    summary = {"prefill_ms": prefill_ms,
+               "prefill_ms_a_token": sum(prefill_ms) / prompts.size,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "levels": levels}
+    print(f"{path}: prefill {summary['prefill_ms_a_token']:.2f} ms a token, "
+          f"peak {summary['peak_gib']:.1f} GiB")
     counts = ops.launch_counts()
-    check_launched(f"LM {layout}", counts, LM_KERNELS[layout])
-    return {"prefill_ms": prefill_ms, "levels": levels}, counts
+    check_launched(path, counts, kernels)
+    return summary, counts
 
 
-def lm_exact_decode(torch, model_lib, model, cfg, prompt, n_new):
+def lm_exact_decode(torch, model_lib, model, cfg, prompt, n_new, *,
+                    dev="cuda", s_max=LM_S_MAX):
     """benchmarks/decode_bench.py:_exact_decode: a batch-1 exact-attention
     decode (agg_kv off): the greedy tokens and logits from the prompt's
     last position on."""
-    caches = model_lib.init_caches(cfg, batch=1, s_max=LM_S_MAX,
-                                   device="cuda")
+    caches = model_lib.init_caches(cfg, batch=1, s_max=s_max, device=dev)
     feed = [int(t) for t in prompt]
     toks, logits = [], []
     for t in range(len(feed) + n_new - 1):
-        cur = torch.tensor([[feed[t]]], dtype=torch.int32, device="cuda")
-        pos = torch.tensor([t], dtype=torch.int32, device="cuda")
+        cur = torch.tensor([[feed[t]]], dtype=torch.int32, device=dev)
+        pos = torch.tensor([t], dtype=torch.int32, device=dev)
         lg, caches = model_lib.serve_step(model, caches, cur, pos, cfg)
         if t >= len(prompt) - 1:
             feed.append(int(torch.argmax(lg[0])))
             toks.append(feed[-1])
             logits.append(lg[0].float())
-    return torch.tensor(toks, device="cuda"), torch.stack(logits)
+    return torch.tensor(toks, device=dev), torch.stack(logits)
 
 
-def lm_guard(torch, model_lib, engine_cls, get_config, prompts):
-    """decode_bench's exactness guard at qwen3-8b's full width in f32,
-    LM_GUARD_LAYERS deep: at refine_frac 1.0 the engine's tokens equal an
-    exact-attention decode's, and its logits agree within LM_GUARD_TOL, in
-    both layouts (TF32 is off for every f32 product)."""
-    cfg = get_config(LM_ARCH).with_(
-        n_layers=LM_GUARD_LAYERS, dtype="float32", agg_kv=True,
-        agg_compression=LM_COMPRESSION)
-    model = model_lib.init_params(
-        cfg, torch.Generator("cuda").manual_seed(3), device="cuda")
-    exact_cfg = cfg.with_(agg_kv=False)
-    exact = [lm_exact_decode(torch, model_lib, model, exact_cfg, p,
-                             LM_NEW_TOKENS) for p in prompts]
+def lm_guard(torch, model_lib, engine_cls, model, cfg, prompts, n_new, *,
+             name=f"LM guard {LM_ARCH}", dev="cuda", s_max=LM_S_MAX) -> dict:
+    """decode_bench's exactness guard on an f32 ``cfg``: at refine_frac 1.0
+    the engine's tokens equal an exact decode's (agg_kv off: exact attention,
+    or for MLA ``mla_decode`` over the latent cache) and its logits agree
+    within LM_GUARD_TOL, in both layouts (TF32 is off for every f32
+    product)."""
+    exact = [lm_exact_decode(torch, model_lib, model, cfg.with_(agg_kv=False),
+                             p, n_new, dev=dev, s_max=s_max) for p in prompts]
     out = {}
     for layout in LM_LAYOUTS:
         engine = engine_cls(model, cfg.with_(agg_layout=layout),
-                            max_slots=LM_SLOTS, s_max=LM_S_MAX,
-                            generator=torch.Generator("cuda").manual_seed(7))
+                            max_slots=len(prompts), s_max=s_max,
+                            generator=torch.Generator(dev).manual_seed(7))
         prefixes = [engine.prefill(p) for p in prompts]
-        toks, logits, _ = lm_generate(torch, engine, prefixes, 1.0,
-                                      LM_NEW_TOKENS - 1)
+        toks, logits, _ = lm_generate(torch, engine, prefixes, 1.0, n_new - 1)
         worst, cap = lm_max_count(engine)
         err = max(float((logits[i] - ex_l).abs().max())
                   for i, (_, ex_l) in enumerate(exact))
@@ -1810,16 +1874,14 @@ def lm_guard(torch, model_lib, engine_cls, get_config, prompts):
         close = all(torch.allclose(logits[i], ex_l, rtol=LM_GUARD_TOL,
                                    atol=LM_GUARD_TOL)
                     for i, (_, ex_l) in enumerate(exact))
-        print(f"LM guard {layout} (f32, {LM_GUARD_LAYERS} layers, rf 1.0 vs "
-              f"exact attention): tokens equal {same}, max logit err "
-              f"{err:.3e} (tol {LM_GUARD_TOL}), largest bucket {worst} / "
-              f"{cap}")
+        print(f"{name} {layout} (f32, {cfg.n_layers} layers, rf 1.0 vs the "
+              f"exact decode): tokens equal {same}, max logit err {err:.3e} "
+              f"(tol {LM_GUARD_TOL}), largest bucket {worst} / {cap}")
         if not (same and close):
-            fail(f"LM guard {layout}: rf 1.0 decode differs from exact "
-                 "attention")
+            fail(f"{name} {layout}: rf 1.0 decode differs from the exact "
+                 "decode")
         out[layout] = {"tokens_equal": same, "max_logit_err": err,
                        "max_bucket_count": worst, "capacity": cap}
-    out["servable"] = lm_servable_guard(torch, model_lib, model, cfg)
     return out
 
 
@@ -1902,6 +1964,59 @@ def lm_small_check(torch):
               f"rf): tokens equal, max logit err {worst:.2e}")
 
 
+def moe_phase(torch, ops, probe, jobs, *, models=None, dev="cuda",
+              prompt_len=MOE_PROMPT, s_max=LM_S_MAX):
+    """The MoE and MLA models through DecodeEngine (``MOE_MODELS``; each at
+    its published widths unless ``models`` gives other configs), then the
+    f32 guard; returns (summary, launch counts summed over the paths)."""
+    from repro_torch.configs import get_config, param_count
+    from repro_torch.models import model as model_lib
+    from repro_torch.serve.lm.engine import DecodeEngine
+
+    t_phase = time.perf_counter()
+    summary, total = {}, {}
+    for arch, n_layers, layouts in MOE_MODELS:
+        cfg = (models or {}).get(arch) or get_config(arch).with_(
+            n_layers=n_layers)
+        cfg = cfg.with_(agg_kv=True, agg_compression=LM_COMPRESSION)
+        t0 = time.perf_counter()
+        model = model_lib.init_params(
+            cfg, torch.Generator(dev).manual_seed(0), device=dev)
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in model.parameters())
+        print(f"moe {arch}: {cfg.n_layers} layers ({cfg.first_k_dense} "
+              f"dense), {n_params / 1e9:.3f} B parameters (param_count "
+              f"{param_count(cfg) / 1e9:.3f} B before vocab padding), "
+              f"{cfg.dtype}, drawn in {time.perf_counter() - t0:.1f} s")
+        prompts = lm_prompts(cfg.vocab_size, LM_SLOTS, prompt_len, seed=0)
+        summary[arch] = {"params": n_params}
+        for layout in layouts:
+            summary[arch][layout], counts = lm_path(
+                torch, ops, probe, DecodeEngine, model, cfg, layout, prompts,
+                jobs, name=f"moe {arch}", sweep=MOE_SWEEP, steps=MOE_STEPS,
+                warm=1, dev=dev, s_max=s_max)
+            for op, n in counts.items():
+                total[op] = total.get(op, 0) + n
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    guard = ((models or {}).get(MOE_GUARD_ARCH) or get_config(
+        MOE_GUARD_ARCH).with_(n_layers=MOE_GUARD_LAYERS)).with_(
+        dtype="float32", capacity_factor=MOE_NO_DROP, agg_kv=True,
+        agg_compression=LM_COMPRESSION)
+    model = model_lib.init_params(guard, torch.Generator(dev).manual_seed(3),
+                                  device=dev)
+    summary["guard"] = lm_guard(
+        torch, model_lib, DecodeEngine, model, guard,
+        lm_prompts(guard.vocab_size, MOE_GUARD_PROMPTS, MOE_GUARD_PROMPT,
+                   seed=1), MOE_GUARD_NEW,
+        name=f"moe guard {MOE_GUARD_ARCH} (no drops)", dev=dev, s_max=s_max)
+    del model
+    torch.cuda.empty_cache()
+    summary["phase_s"] = time.perf_counter() - t_phase
+    return summary, total
+
+
 def lm_phase(torch, ops, probe, jobs):
     """The LM path at qwen3-8b's full width and depth in bf16, both
     layouts; returns (summary, launch counts summed over the layouts, the
@@ -1933,15 +2048,24 @@ def lm_phase(torch, ops, probe, jobs):
 
 
 def lm_guard_phase(torch):
-    """decode_bench's exactness guard (``lm_guard``) on the LM phase's
-    prompts."""
+    """decode_bench's exactness guard (``lm_guard``) at qwen3-8b's full
+    width in f32, LM_GUARD_LAYERS deep, on the LM phase's prompts, then
+    the serve phase's LMServable on the same model
+    (``lm_servable_guard``)."""
     from repro_torch.configs import get_config
     from repro_torch.models import model as model_lib
     from repro_torch.serve.lm.engine import DecodeEngine
 
-    prompts = lm_prompts(get_config(LM_ARCH).vocab_size, LM_SLOTS, LM_PROMPT,
-                         seed=0)
-    out = lm_guard(torch, model_lib, DecodeEngine, get_config, prompts)
+    cfg = get_config(LM_ARCH).with_(
+        n_layers=LM_GUARD_LAYERS, dtype="float32", agg_kv=True,
+        agg_compression=LM_COMPRESSION)
+    model = model_lib.init_params(
+        cfg, torch.Generator("cuda").manual_seed(3), device="cuda")
+    prompts = lm_prompts(cfg.vocab_size, LM_SLOTS, LM_PROMPT, seed=0)
+    out = lm_guard(torch, model_lib, DecodeEngine, model, cfg, prompts,
+                   LM_NEW_TOKENS)
+    out["servable"] = lm_servable_guard(torch, model_lib, model, cfg)
+    del model
     torch.cuda.empty_cache()
     return out
 
@@ -2103,17 +2227,22 @@ class EventRecorder:
 
 def calibrate_covers(server, kind, recorder) -> dict:
     """``calibrate``'s stage-1 time (the fitted model at eps 0: the median
-    of its three timed runs at eps 0, each on the host clock up to a
-    synchronise) against the median CUDA-event time of the same three runs
-    (its first four calls: a warm-up, then the timed ones).  Separate runs
-    would not do: the card's clock moves between them."""
+    of its timed runs at eps 0, each on the host clock up to a synchronise,
+    and its share of the host term) against the median CUDA-event time of
+    the same runs (after a warm-up at each budget, the timed runs alternate
+    between eps 0 and eps_max).  Separate runs would not do: the card's
+    clock moves between them."""
+    from repro_torch.serve.server import CALIBRATE_RUNS
+
     servable = server.servables[kind]
     ctl = server.controller
     t_eps0 = ctl.models[kind].predict(servable.n_points,
                                       ctl.policy.compression_ratio, 0.0)
-    timed = recorder.calls[1:4]
-    if [b for b, _ in recorder.calls[:4]] != [0] * 4:
-        fail(f"serve {kind}: calibrate's first runs were not at budget 0")
+    first = recorder.calls[:2 + 2 * CALIBRATE_RUNS]
+    timed = [c for c in first[2:] if c[0] == 0]
+    if first[0][0] != 0 or len(timed) != CALIBRATE_RUNS:
+        fail(f"serve {kind}: calibrate's runs at budget 0 are not every "
+             "other one after its two warm-ups")
     card = statistics.median(s.elapsed_time(e) / 1e3 for _, (s, e) in timed)
     if t_eps0 < card:
         fail(f"serve {kind}: calibrate's stage-1 time {t_eps0 * 1e3:.3f} ms "
@@ -2122,17 +2251,29 @@ def calibrate_covers(server, kind, recorder) -> dict:
     return {"t_eps0_ms": t_eps0 * 1e3, "event_ms": card * 1e3}
 
 
+def one_slo_class(deadline_s: float) -> float:
+    """``deadline_s``, raised where it lies less than SLO_CLASS_MARGIN
+    above a power of two to that margin above it: the batcher co-batches
+    requests whose remaining budgets share a log2 class, and a wave's first
+    requests would otherwise fall into the class below while the wave is
+    submitted, splitting it into two batches, the second of which waits
+    for the first."""
+    floor = 2.0 ** math.floor(math.log2(deadline_s))
+    return max(deadline_s, floor * (1.0 + SLO_CLASS_MARGIN))
+
+
 def slo_classes(server, kind) -> dict:
     """The kind's SLO classes from its fitted model, derived as
     ``prepare_demo_server`` derives them, the tight class at the grid value
-    below eps_max."""
+    below eps_max, each kept inside one of the batcher's SLO classes
+    (``one_slo_class``)."""
     ctl = server.controller
     n = server.servables[kind].n_points
     tight = max(e for e in ctl.eps_grid if e < ctl.policy.eps_max)
     slos = {"relaxed": 1.5 * ctl.deadline_for(kind, n, ctl.policy.eps_max),
             "tight": 1.15 * ctl.deadline_for(kind, n, tight),
             "hopeless": 0.25 * ctl.deadline_for(kind, n, 0.0)}
-    return {c: slos[c] for c in SERVE_CLASSES[kind]}
+    return {c: one_slo_class(slos[c]) for c in SERVE_CLASSES[kind]}
 
 
 def _make_server(servables, kind, batcher, **obs):
@@ -3225,6 +3366,13 @@ def main() -> int:
     for op, calls in lm_probe.calls.items():
         probe.calls.setdefault(op, {}).update(calls)
 
+    # ---- MoE and MLA decode: deepseek-v2-236b and moonshot-v1-16b-a3b ----
+    moe_summary, counts_moe = moe_phase(torch, ops, lm_probe, lm_jobs)
+    print(f"moe phase card: {smi}; {moe_summary['phase_s']:.1f} s")
+    print(json.dumps({"moe": moe_summary, "card": smi}))
+    for op, calls in lm_probe.calls.items():
+        probe.calls.setdefault(op, {}).update(calls)
+
     # ---- the serving stack: kNN, CF and LM servers ----
     gc.collect()
     torch.cuda.empty_cache()
@@ -3252,6 +3400,8 @@ def main() -> int:
     counts = {**counts_knn, **{op: counts_cf[op] for op in CF_KERNELS},
               **{op: counts_lm[op] for op in ATTN_KERNELS}}
     counts["distance_topk"] += counts_lm["distance_topk"]
+    for op in counts_moe:
+        counts[op] += counts_moe[op]
     counts["lsh_hash"] = counts_knn["lsh_hash"] + counts_cf["lsh_hash"]
     for op in STORE_KERNELS:
         counts[op] += counts_store[op]

@@ -3,8 +3,9 @@ model, as ``src/repro/configs/base.py`` defines it (the port keeps its own
 copy and imports nothing of the JAX package).
 
 The fields name every architecture family the JAX package knows; the
-port's model code runs the dense GQA decoder (``family="dense"``,
-``pattern=("attn",)``) and raises on the others.
+port's model code runs ``attn`` blocks, dense GQA or MLA, with a SwiGLU
+MLP or a routed MoE, and raises on the others (SSM, xLSTM,
+encoder-decoder, sliding-window, M-RoPE).
 """
 from __future__ import annotations
 

@@ -1,0 +1,27 @@
+"""deepseek-7b [dense]: llama-architecture dense model.
+
+30L d_model=4096 32H (kv=32) d_ff=11008 vocab=102400 [arXiv:2401.02954].
+"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="deepseek-7b",
+    family="dense",
+    n_layers=30,
+    d_model=4096,
+    n_heads=32,
+    n_kv_heads=32,
+    d_ff=11008,
+    vocab_size=102400,
+    rope_theta=1.0e4,
+)
+
+SMOKE = CONFIG.with_(
+    n_layers=2,
+    d_model=64,
+    n_heads=4,
+    n_kv_heads=4,
+    d_ff=128,
+    vocab_size=256,
+    dtype="float32",
+)

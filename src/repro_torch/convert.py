@@ -2,6 +2,10 @@
 and a language model's parameters and train state back into the JAX
 package's trees.
 
+The port's parameter names are the JAX package's keys (``attn.w_dq``,
+``moe.router``, ``moe.w_gate`` stacked over the experts, ``moe.shared``...),
+so the dense, MoE and MLA models' leaves map by name alike.
+
 JAX's PRNG bits cannot be reproduced in torch, so a comparison of the two
 packages draws once on the JAX side and hands the draws over: LSH
 projections for ``run_accurateml(lsh_params=...)``, prepared aggregates

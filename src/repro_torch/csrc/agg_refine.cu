@@ -17,8 +17,9 @@
 // merges) set its time.
 //
 // Design (decode_attn.cuh).  One launch: a cluster of eight blocks of four
-// warps per (sequence, KV head), so the batch's few pairs still spread over
-// the SMs.  Selection slot u goes to the cluster's warp unit u mod 32, so a
+// warps per (sequence, KV head, head tile, value tile), so the batch's few
+// pairs still spread over the SMs; MLA's 128 heads of 512 values take 32
+// tiles.  Selection slot u goes to the cluster's warp unit u mod 32, so a
 // warp owns slots unit, unit + 32, ...; it loads their top_idx and use (a
 // lane a slot) while the block stages q and the sequence's counts in
 // shared memory, then lists the slots' live rows (row c < min(count, C),
@@ -114,12 +115,13 @@ agg_refine_kernel(const float* __restrict__ q, const T* __restrict__ k_slots,
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
-  const int kvh = blockIdx.y;
+  const Tile tl(blockIdx.y, g, dv);
+  const int kvh = tl.kvh;
   const int b = blockIdx.z;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const Rows<T> rs(dk, dv);
-  const RefineLayout<T> lay(rs, g, GM, dk, dv, rows, kb);
+  const Rows<T> rs(dk, tl.dv);
+  const RefineLayout<T> lay(rs, tl.g, GM, dk, tl.dv, rows, kb);
   float* q_s = reinterpret_cast<float*>(smem);
   unsigned char* mine = smem + lay.q_bytes + warp * lay.warp_bytes;
   T* ks = reinterpret_cast<T*>(mine);
@@ -133,7 +135,7 @@ agg_refine_kernel(const float* __restrict__ q, const T* __restrict__ k_slots,
   cluster_arrive();
   // the queries and the sequence's counts by the whole block, while each
   // warp loads its first slots' indices
-  stage_queries(q + bh * g * dk, q_s, g, GM, dk);
+  stage_queries(q + (bh * g + tl.g0) * dk, q_s, tl.g, GM, dk);
   for (int i = threadIdx.x; i < kb; i += kThreads) {
     cnt_s[i] = counts[static_cast<size_t>(b) * kb + i];
   }
@@ -157,7 +159,8 @@ agg_refine_kernel(const float* __restrict__ q, const T* __restrict__ k_slots,
         rid_s[sg.excl + c - c0] = base + static_cast<long long>(c) * hkv;
       }
       __syncwarp();
-      stage_rows(ks, vs, rs, k_slots, v_slots, dk, dv, rid_s, n, lane);
+      stage_rows(ks, vs, rs, k_slots, v_slots + tl.v0, dk, dv, rid_s, n,
+                 lane);
       cp_async_commit();
       cp_async_wait_all();
       __syncwarp();
@@ -169,22 +172,27 @@ agg_refine_kernel(const float* __restrict__ q, const T* __restrict__ k_slots,
     sg = load_slots(top_idx, use, b, kb, r_sel, unit, n_mine, j0, lane);
     count_slots(sg, cnt_s, cap, lane);
   }
-  st.store(reinterpret_cast<float*>(mine), rs, g, dv, lane);
+  st.store(reinterpret_cast<float*>(mine), rs, tl.g, tl.dv, lane);
   __syncthreads();
   cluster_wait();
   merge_block(cluster, rank,
               reinterpret_cast<const float*>(smem + lay.q_bytes),
-              lay.warp_bytes / 4, gather, wts, g, dv);
+              lay.warp_bytes / 4, gather, wts, tl.g, tl.dv);
   cluster.sync();
-  const size_t o = bh * g;
+  const size_t o = bh * g + tl.g0;
   merge_cluster(
-      rank, gather, wts + kWarps * g, wts + (kWarps + kCluster) * g, g, dv,
+      rank, gather, wts + kWarps * tl.g, wts + (kWarps + kCluster) * tl.g,
+      tl.g, tl.dv,
       [=](int gi, float m, float l) {
-        out_m[o + gi] = m;
-        out_l[o + gi] = l;
+        if (tl.v0 == 0) {
+          out_m[o + gi] = m;
+          out_l[o + gi] = l;
+        }
       },
       [=](int e4, float4 a, float) {
-        reinterpret_cast<float4*>(out_acc + o * dv)[e4] = a;
+        const int gi = e4 * 4 / tl.dv;
+        const int c = e4 * 4 - gi * tl.dv;
+        *reinterpret_cast<float4*>(out_acc + (o + gi) * dv + tl.v0 + c) = a;
       });
 }
 
@@ -198,12 +206,15 @@ struct Args {
 template <typename T, int P, int GM>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   static size_t smem_set = 0;
-  const Rows<T> rs(a.dk, a.dv);
-  const RefineLayout<T> lay(rs, a.g, GM, a.dk, a.dv, a.rows, a.kb);
+  // the first tile is the largest: its layout sizes every block's
+  const int gt = a.g < kMaxG ? a.g : kMaxG;
+  const int dvt = a.dv < kValueTile ? a.dv : kValueTile;
+  const Rows<T> rs(a.dk, dvt);
+  const RefineLayout<T> lay(rs, gt, GM, a.dk, dvt, a.rows, a.kb);
   const cudaError_t err =
       allow_smem(agg_refine_kernel<T, P, GM>, lay.total, smem_set);
   if (err != cudaSuccess) return err;
-  const dim3 grid(kCluster, a.hkv, a.b);
+  const dim3 grid(kCluster, grid_y(a.hkv, a.g, a.dv), a.b);
   agg_refine_kernel<T, P, GM><<<grid, kThreads, lay.total, stream>>>(
       static_cast<const float*>(a.q), static_cast<const T*>(a.k_slots),
       static_cast<const T*>(a.v_slots), static_cast<const int*>(a.counts),
@@ -226,8 +237,10 @@ cudaError_t dispatch(const Args& a, cudaStream_t stream) {
 // (bf16 != 0) or f32; counts: [b, kb] int32; top_idx: [b, r_sel] int32
 // (clipped to [0, kb)); use: [b, r_sel] bytes.  out_m, out_l: [b, hkv, g],
 // out_acc: [b, hkv, g, dv] f32.  rows: rows of a warp's chunk, 1 to 32.
-// g <= 8, dv <= 256, dk and dv multiples of 16 bytes' worth of the cache
-// type, every pointer 16-byte aligned.  One launch; returns its error.
+// Any g and dv (tiles of kMaxG heads and kValueTile columns, Tile); dk and
+// dv multiples of 16 bytes' worth of the cache type, every pointer 16-byte
+// aligned, the shared memory of a tile within a block's.  One launch;
+// returns its error.
 extern "C" int agg_refine_attention(const void* q, const void* k_slots,
                                     const void* v_slots, const void* counts,
                                     const void* top_idx, const void* use,

@@ -22,9 +22,10 @@
 // its time.
 //
 // Design (decode_attn.cuh).  One launch for the batch: a cluster of eight
-// blocks of four warps per (sequence, KV head).  The live masks are computed
-// in the kernel from bucket_of, refined, counts and valid_len[b]: no bias
-// vector exists, and a masked token's K/V row is never read.  The first
+// blocks of four warps per (sequence, KV head, head tile, value tile).  The
+// live masks are computed in the kernel from bucket_of, refined, counts and
+// valid_len[b]: no bias vector exists, and a masked token's K/V row is
+// never read.  The first
 // three warps of every block split the written tokens [0, valid_len[b])
 // into equal spans on the card (24 a cluster), the last warp of every
 // block the K centroids (8 a cluster), so the two passes run side by side.
@@ -172,13 +173,15 @@ aggregated_attention_kernel(
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
-  const int kvh = blockIdx.y;
+  const Tile tl(blockIdx.y, g, dv);
+  const int kvh = tl.kvh;
   const int b = blockIdx.z;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const Rows<T> rt(dk, dv);
-  const Rows<float> rc(dk, dv);
-  const FlatLayout<T> lay(rt, rc, g, GM, dk, dv, tok_rows, cen_rows, kb);
+  const Rows<T> rt(dk, tl.dv);
+  const Rows<float> rc(dk, tl.dv);
+  const FlatLayout<T> lay(rt, rc, tl.g, GM, dk, tl.dv, tok_rows, cen_rows,
+                          kb);
   float* q_s = reinterpret_cast<float*>(smem);
   unsigned char* mine = smem + lay.q_bytes + warp * lay.warp_bytes;
   long long* rid_s = reinterpret_cast<long long*>(mine + lay.ids_at);
@@ -194,7 +197,7 @@ aggregated_attention_kernel(
   // while each token warp loads the buckets of its first window: the last
   // warp of a block takes centroids (the unrefined, non-empty buckets), the
   // others tokens below valid_len in the refined buckets
-  stage_queries(q + bh * g * dk, q_s, g, GM, dk);
+  stage_queries(q + (bh * g + tl.g0) * dk, q_s, tl.g, GM, dk);
   for (int i = threadIdx.x; i < kb; i += kThreads) {
     cnt_s[i] = counts[static_cast<size_t>(b) * kb + i];
     ref_s[i] = refined[static_cast<size_t>(b) * kb + i];
@@ -231,31 +234,33 @@ aggregated_attention_kernel(
     st.init();
     float* ks = reinterpret_cast<float*>(mine);
     fold_span(st, n_live, lo, hi, cen_window, cen_rows, ks,
-              ks + cen_rows * rc.kst, rc, mean_k, mean_v, rid_s,
+              ks + cen_rows * rc.kst, rc, mean_k, mean_v + tl.v0, rid_s,
               static_cast<const float*>(bias_s), q_s, dk, dv, scale, lane);
-    st.store(reinterpret_cast<float*>(mine), rc, g, dv, lane);
+    st.store(reinterpret_cast<float*>(mine), rc, tl.g, tl.dv, lane);
   } else {
     Partial<T, PT, GM> st;
     st.init();
     T* ks = reinterpret_cast<T*>(mine);
     fold_span(st, n_live, lo, hi, tok_window, tok_rows, ks,
-              ks + tok_rows * rt.kst, rt, k_cache, v_cache, rid_s,
+              ks + tok_rows * rt.kst, rt, k_cache, v_cache + tl.v0, rid_s,
               static_cast<const float*>(nullptr), q_s, dk, dv, scale, lane);
-    st.store(reinterpret_cast<float*>(mine), rt, g, dv, lane);
+    st.store(reinterpret_cast<float*>(mine), rt, tl.g, tl.dv, lane);
   }
   __syncthreads();
   cluster_wait();
   merge_block(cluster, rank,
               reinterpret_cast<const float*>(smem + lay.q_bytes),
-              lay.warp_bytes / 4, gather, wts, g, dv);
+              lay.warp_bytes / 4, gather, wts, tl.g, tl.dv);
   cluster.sync();
-  float* o = out + bh * g * dv;
+  float* o = out + (bh * g + tl.g0) * dv + tl.v0;
   merge_cluster(
-      rank, gather, wts + kWarps * g, wts + (kWarps + kCluster) * g, g, dv,
-      [](int, float, float) {},
+      rank, gather, wts + kWarps * tl.g, wts + (kWarps + kCluster) * tl.g,
+      tl.g, tl.dv, [](int, float, float) {},
       [=](int e4, float4 a, float l) {
         const float den = fmaxf(l, 1e-30f);
-        reinterpret_cast<float4*>(o)[e4] =
+        const int gi = e4 * 4 / tl.dv;
+        const int c = e4 * 4 - gi * tl.dv;
+        *reinterpret_cast<float4*>(o + gi * dv + c) =
             make_float4(a.x / den, a.y / den, a.z / den, a.w / den);
       });
 }
@@ -271,14 +276,17 @@ struct Args {
 template <typename T, int PT, int PC, int GM>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   static size_t smem_set = 0;
-  const Rows<T> rt(a.dk, a.dv);
-  const Rows<float> rc(a.dk, a.dv);
-  const FlatLayout<T> lay(rt, rc, a.g, GM, a.dk, a.dv, a.tok_rows,
+  // the first tile is the largest: its layout sizes every block's
+  const int gt = a.g < kMaxG ? a.g : kMaxG;
+  const int dvt = a.dv < kValueTile ? a.dv : kValueTile;
+  const Rows<T> rt(a.dk, dvt);
+  const Rows<float> rc(a.dk, dvt);
+  const FlatLayout<T> lay(rt, rc, gt, GM, a.dk, dvt, a.tok_rows,
                           a.cen_rows, a.kb);
   const cudaError_t err = allow_smem(
       aggregated_attention_kernel<T, PT, PC, GM>, lay.total, smem_set);
   if (err != cudaSuccess) return err;
-  const dim3 grid(kCluster, a.hkv, a.b);
+  const dim3 grid(kCluster, grid_y(a.hkv, a.g, a.dv), a.b);
   aggregated_attention_kernel<T, PT, PC, GM><<<grid, kThreads, lay.total,
                                                stream>>>(
       static_cast<const float*>(a.q), static_cast<const T*>(a.k_cache),
@@ -304,8 +312,10 @@ cudaError_t dispatch(const Args& a, cudaStream_t stream) {
 // mean_k/mean_v: [b, kb, hkv, dk|dv] f32; counts: [b, kb] int32; refined:
 // [b, kb] bytes; valid_len: [b] int32.  out: [b, hkv * g, dv] f32.
 // tok_rows, cen_rows: rows of a warp's token and centroid chunks, 1 to 32.
-// g <= 8, dv <= 256, dk and dv multiples of 16 bytes' worth of the cache
-// type, every pointer 16-byte aligned.  One launch; returns its error.
+// Any g and dv (tiles of kMaxG heads and kValueTile columns, Tile); dk and
+// dv multiples of 16 bytes' worth of the cache type, every pointer 16-byte
+// aligned, the shared memory of a tile within a block's.  One launch;
+// returns its error.
 extern "C" int aggregated_attention(
     const void* q, const void* k_cache, const void* v_cache,
     const void* bucket_of, const void* mean_k, const void* mean_v,
@@ -318,6 +328,8 @@ extern "C" int aggregated_attention(
                scale, out};
   auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
+  // a lane's 16-byte pieces of a value tile's row: two for an f32 row
+  // past 128 values
   if (bf16) {
     err = dv > 128 ? dispatch<__nv_bfloat16, 1, 2>(a, st)
                    : dispatch<__nv_bfloat16, 1, 1>(a, st);

@@ -5,7 +5,13 @@
 // tens of kilobytes of live rows, and what sets a launch's time is the
 // launch itself and the chain of dependent steps behind it.  So both run as
 // one launch, one thread-block cluster of kCluster blocks of kWarps warps
-// per (sequence, KV head), and the partial softmaxes meet on the chip:
+// per (sequence, KV head, head tile, value tile), and the partial softmaxes
+// meet on the chip.  A tile holds up to kMaxG query heads and kValueTile
+// value columns (Tile): MLA's absorbed decode has 128 query heads of 576
+// wide keys over one KV head, whose f32 queries alone (295 KB) would not
+// fit a block's shared memory, so its (sequence, KV head) takes 16 head
+// tiles times 2 value tiles of clusters, each re-reading the key rows it
+// needs (from L2 after the first).
 //
 // - Each warp of the cluster (unit = warp * kCluster + rank, so consecutive
 //   units land on different SMs) takes a fixed share of the rows: selection
@@ -51,13 +57,44 @@ namespace decode_attn {
 namespace cg = cooperative_groups;
 
 constexpr float kNeg = -1.0e30f;
-constexpr int kMaxG = 8;          // query heads per KV head
+constexpr int kMaxG = 8;          // query heads of a head tile
+constexpr int kValueTile = 256;   // value columns of a value tile
 constexpr int kCluster = 8;       // blocks per (sequence, KV head)
 constexpr int kWarps = 4;         // warps per block
 constexpr int kThreads = 32 * kWarps;
 constexpr int kUnits = kCluster * kWarps;  // warps per (sequence, KV head)
 constexpr int kRows = 32;         // rows of a window: one per lane
 constexpr unsigned kFull = 0xffffffffu;
+
+// Tiles of n by t.
+__host__ __device__ inline int tiles(int n, int t) { return (n + t - 1) / t; }
+
+// The part of a (sequence, KV head)'s work a cluster takes: a tile of at
+// most kMaxG of its g query heads and one of at most kValueTile of its dv
+// value columns.  blockIdx.y = (kvh * head tiles + head tile) * value tiles
+// + value tile, so one launch covers every tile (kernels/decode_geometry.py
+// mirrors this).  Every tile reads the whole key rows: the logits are the
+// same in each value tile, and the first writes m and l.
+struct Tile {
+  int kvh, g0, g, v0, dv;
+  __device__ Tile(int y, int g_all, int dv_all) {
+    const int tv = tiles(dv_all, kValueTile);
+    const int tg = tiles(g_all, kMaxG);
+    const int vt = y % tv;
+    y /= tv;
+    const int gt = y % tg;
+    kvh = y / tg;
+    g0 = gt * kMaxG;
+    g = min(kMaxG, g_all - g0);
+    v0 = vt * kValueTile;
+    dv = min(kValueTile, dv_all - v0);
+  }
+};
+
+// The launch grid's y extent: every (KV head, head tile, value tile).
+inline int grid_y(int hkv, int g, int dv) {
+  return hkv * tiles(g, kMaxG) * tiles(dv, kValueTile);
+}
 
 // Blocks an SM should hold, for the register limit: a kernel instantiated
 // for GM <= 4 query heads and one 16-byte piece of a value row a lane (P)

@@ -2,8 +2,8 @@
 
 Exact re-attention over the selected buckets of a bucket-major KV cache, as
 a partial-softmax triple, in one launch (a thread-block cluster per
-(sequence, KV head), the partials merged on the chip; the launch geometry is
-``decode_geometry``); replaces
+(sequence, KV head, head tile, value tile), the partials merged on the chip;
+the launch geometry is ``decode_geometry``); replaces
 ``src/repro/kernels/agg_refine.py:agg_refine_attention_pallas``.  The plain
 version is ``ref.agg_refine_attention``.
 """
@@ -17,21 +17,31 @@ from repro_torch.kernels import _build, decode_geometry
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGS = [_P] * 6 + [_I] * 10 + [_F] + [_P] * 4
-MAX_GROUP = 8     # query heads per KV head (decode_attn.cuh kMaxG)
-MAX_DV = 256      # value width: at most two 16-byte pieces a lane
+MAX_DK = 1024     # a head tile's f32 queries (8 x 1024) take 32 KB of
+                  # shared memory, and a centroid row 4 KB of a chunk's
 MAX_BUCKETS = 8192   # a sequence's bucket counts sit in shared memory
+MAX_GRID_Y = 65535   # (KV head, head tile, value tile) rows of the grid
 CACHE_DTYPES = (torch.bfloat16, torch.float32)
 
 
-def check_heads(group: int, dk: int, dv: int, dtype: torch.dtype) -> None:
-    """Raise unless the decode-attention kernels take these head shapes."""
+def check_heads(hkv: int, group: int, dk: int, dv: int,
+                dtype: torch.dtype) -> None:
+    """Raise unless the decode-attention kernels take these head shapes:
+    any number of query heads a KV head and any value width (tiles of
+    ``decode_geometry.HEAD_TILE`` heads and ``VALUE_TILE`` columns, one
+    launch), keys up to ``MAX_DK`` wide."""
     if dtype not in CACHE_DTYPES:
         raise TypeError(f"cache dtype {dtype}: expected bfloat16 or float32")
-    if not 1 <= group <= MAX_GROUP:
-        raise ValueError(f"{group} query heads per KV head: the kernel takes "
-                         f"1 to {MAX_GROUP}")
-    if not 1 <= dv <= MAX_DV:
-        raise ValueError(f"value width {dv}: the kernel takes 1 to {MAX_DV}")
+    if group < 1:
+        raise ValueError(f"{group} query heads per KV head")
+    if not 1 <= dk <= MAX_DK:
+        raise ValueError(f"key width {dk}: the kernel takes 1 to {MAX_DK}")
+    if dv < 1:
+        raise ValueError(f"value width {dv}")
+    rows = decode_geometry.grid(1, hkv, group, dv)[1]
+    if rows > MAX_GRID_Y:
+        raise ValueError(f"{hkv} KV heads of {group} query heads and {dv} "
+                         f"values make {rows} grid rows, over {MAX_GRID_Y}")
     vec = 128 // torch.finfo(dtype).bits
     if dk % vec:
         raise ValueError(f"key width {dk}: must be a multiple of {vec} for "
@@ -72,7 +82,7 @@ def agg_refine_attention_cuda(
     kb, cap = k_slots.shape[1], k_slots.shape[2]
     _build.expect(v_slots, "v_slots", dtype, (b, kb, cap, hkv, None), dev)
     dv = v_slots.shape[-1]
-    check_heads(g, dk, dv, dtype)
+    check_heads(hkv, g, dk, dv, dtype)
     check_buckets(kb)
     _build.expect(counts, "counts", torch.int32, (b, kb), dev)
     _build.expect(top_idx, "top_idx", torch.int32, (b, None), dev)

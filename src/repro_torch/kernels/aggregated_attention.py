@@ -1,9 +1,10 @@
 """Wrapper of the CUDA kernel ``csrc/aggregated_attention.cu``.
 
 Two-stage aggregated decode attention over a flat KV cache, for a whole
-decode batch in one launch (a thread-block cluster per (sequence, KV head),
-the written tokens split among its warps on the card, the partials merged on
-the chip; the launch geometry is ``decode_geometry``); replaces
+decode batch in one launch (a thread-block cluster per (sequence, KV head,
+head tile, value tile), the written tokens split among its warps on the
+card, the partials merged on the chip; the launch geometry is
+``decode_geometry``); replaces
 ``src/repro/kernels/aggregated_attention.py:aggregated_attention_pallas``
 (its two ``masked_decode_attention`` passes and ``merge_partials``), which
 the JAX package vmaps over the batch.  The plain version is
@@ -46,7 +47,7 @@ def aggregated_attention_cuda(
     if hkv == 0 or hq % hkv:
         raise ValueError(f"{hq} query heads over {hkv} KV heads")
     g = hq // hkv
-    check_heads(g, dk, dv, dtype)
+    check_heads(hkv, g, dk, dv, dtype)
     _build.expect(bucket_of, "bucket_of", torch.int32, (b, s), dev)
     _build.expect(mean_k, "mean_k", torch.float32, (b, None, hkv, dk), dev)
     kb = mean_k.shape[1]

@@ -2,7 +2,10 @@
 ``csrc/aggregated_attention.cu``), in Python.
 
 Both launch one thread-block cluster of ``CLUSTER`` blocks of ``WARPS`` warps
-per (sequence, KV head): the grid is ``(CLUSTER, Hkv, B)``.  The cluster's
+per (sequence, KV head, head tile, value tile): a tile holds up to
+``HEAD_TILE`` of the KV head's G query heads and ``VALUE_TILE`` of its dv
+value columns, and the grid is ``(CLUSTER, Hkv x head tiles x value tiles,
+B)`` (``tile`` decomposes the y index).  The cluster's
 warps split the work by what is live, on the card: in ``agg_refine`` all
 ``UNITS`` of them the selection slots; in ``aggregated_attention`` the first
 ``WARPS - 1`` warps of every block (``TOKEN_UNITS``) the written tokens and
@@ -24,11 +27,28 @@ ROWS = 16            # rows of a chunk at most (a lane each; kRows is 32):
                      # at the LM's decode shapes a warp's live rows fit in
                      # one chunk, and four blocks fit an SM's shared memory
 ROW_BUDGET = 12 * 1024   # shared-memory bytes of a warp's row chunks
+HEAD_TILE = 8        # decode_attn.cuh kMaxG: query heads of a head tile
+VALUE_TILE = 256     # kValueTile: value columns of a value tile
 
 
-def grid(b: int, hkv: int) -> tuple[int, int, int]:
-    """The launch grid: x is the block's rank within its cluster."""
-    return CLUSTER, hkv, b
+def tiles(n: int, t: int) -> int:
+    return -(-n // t)
+
+
+def grid(b: int, hkv: int, g: int, dv: int) -> tuple[int, int, int]:
+    """The launch grid: x is the block's rank within its cluster, y every
+    (KV head, head tile, value tile)."""
+    return CLUSTER, hkv * tiles(g, HEAD_TILE) * tiles(dv, VALUE_TILE), b
+
+
+def tile(y: int, g: int, dv: int) -> tuple[int, range, range]:
+    """(KV head, its query heads, its value columns) of grid row ``y``
+    (``decode_attn.cuh`` Tile)."""
+    tv, tg = tiles(dv, VALUE_TILE), tiles(g, HEAD_TILE)
+    vt, y = y % tv, y // tv
+    g0, v0 = (y % tg) * HEAD_TILE, vt * VALUE_TILE
+    return (y // tg, range(g0, min(g0 + HEAD_TILE, g)),
+            range(v0, min(v0 + VALUE_TILE, dv)))
 
 
 def unit(rank: int, warp: int) -> int:
@@ -62,8 +82,9 @@ def row_bytes(width: int, itemsize: int) -> int:
 
 def refine_rows(r: int, cap: int, dk: int, dv: int, itemsize: int) -> int:
     """Rows of a warp's chunk in ``agg_refine_attention``: up to ``ROWS``,
-    no more than a warp's slots can hold, within ``ROW_BUDGET``."""
-    one = row_bytes(dk, itemsize) + row_bytes(dv, itemsize)
+    no more than a warp's slots can hold, within ``ROW_BUDGET`` (a row: a
+    key and a value tile's columns)."""
+    one = row_bytes(dk, itemsize) + row_bytes(min(dv, VALUE_TILE), itemsize)
     most = math.ceil(r / UNITS) * cap
     return max(1, min(ROWS, most, ROW_BUDGET // one))
 
@@ -73,7 +94,9 @@ def flat_rows(s: int, kb: int, dk: int, dv: int,
     """(token rows, centroid rows) of a token warp's and a centroid warp's
     chunk in ``aggregated_attention``: each up to ``ROWS``, no more than a
     warp's span (at ``valid_len`` = S for tokens) and within
-    ``ROW_BUDGET``; centroid rows are f32."""
+    ``ROW_BUDGET``; centroid rows are f32.  A row: a key and a value
+    tile's columns."""
+    dv = min(dv, VALUE_TILE)
     tok_one = row_bytes(dk, itemsize) + row_bytes(dv, itemsize)
     tok = max(1, min(ROWS, math.ceil(s / TOKEN_UNITS),
                      ROW_BUDGET // tok_one))

@@ -41,13 +41,17 @@ class Init:
         self.dtype = dtype
         self.device = device
 
-    def normal(self, shape: tuple, scale: float) -> nn.Parameter:
+    def normal(self, shape: tuple, scale: float,
+               dtype: torch.dtype | None = None) -> nn.Parameter:
+        """Standard normals times ``scale`` in ``dtype`` (default: the
+        model's)."""
+        dtype = self.dtype if dtype is None else dtype
         if self.generator is None:
-            t = torch.empty(shape, dtype=self.dtype, device=self.device)
+            t = torch.empty(shape, dtype=dtype, device=self.device)
         else:
             t = torch.randn(shape, generator=self.generator,
-                            device=self.generator.device) * scale
-            t = t.to(device=self.device, dtype=self.dtype)
+                            device=self.generator.device)
+            t = t.mul_(scale).to(device=self.device, dtype=dtype)
         return nn.Parameter(t, requires_grad=False)
 
     def const(self, shape: tuple, value: float) -> nn.Parameter:
@@ -56,9 +60,10 @@ class Init:
 
 
 def dense_init(init: Init, d_in: int, d_out: int,
-               scale: float | None = None) -> nn.Parameter:
+               scale: float | None = None,
+               dtype: torch.dtype | None = None) -> nn.Parameter:
     scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
-    return init.normal((d_in, d_out), scale)
+    return init.normal((d_in, d_out), scale, dtype)
 
 
 def rmsnorm_init(init: Init, d: int) -> nn.Parameter:

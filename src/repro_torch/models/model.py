@@ -53,7 +53,8 @@ def block_kinds(cfg) -> list[str]:
 class LM(nn.Module):
     """Decoder-only language model weights: ``embed`` [V_pad, d],
     ``final_norm`` [d], ``lm_head`` [d, V_pad] (unless tied) and
-    ``blocks``."""
+    ``blocks`` (the first ``cfg.first_k_dense`` are head blocks, with a
+    dense MLP in an MoE config)."""
 
     def __init__(self, init: layers.Init, cfg):
         super().__init__()
@@ -63,8 +64,10 @@ class LM(nn.Module):
         self.final_norm = layers.rmsnorm_init(init, cfg.d_model)
         if not cfg.tie_embeddings:
             self.lm_head = layers.dense_init(init, cfg.d_model, vpad)
+        n_head = cfg.first_k_dense
         self.blocks = nn.ModuleList(
-            transformer.block_init(init, cfg, kind) for kind in self.kinds)
+            transformer.block_init(init, cfg, kind, is_head=i < n_head)
+            for i, kind in enumerate(self.kinds))
 
 
 def init_params(cfg, generator: torch.Generator, *,
@@ -140,11 +143,12 @@ def prefill(model: LM, tokens: torch.Tensor, cfg) -> torch.Tensor:
 def draw_lsh(cfg, generator: torch.Generator, *,
              device: str | torch.device = "cuda") -> list:
     """Every attention layer's LSH draws (a, b) on ``device``, in stack
-    order, drawn from ``generator`` on its own device."""
+    order, drawn from ``generator`` on its own device (over the latent
+    keys for MLA)."""
     dev = resolve(device)
+    n_kv, dk, _ = transformer.cache_dims(cfg)
     return [tuple(t.to(dev) for t in aggregated_kv.draw_lsh(
-                generator, n_kv=cfg.n_kv_heads, dk=cfg.head_dim,
-                device=generator.device))
+                generator, n_kv=n_kv, dk=dk, device=generator.device))
             for _ in block_kinds(cfg)]
 
 
@@ -173,7 +177,7 @@ def serve_step(model: LM, caches: list, tokens: torch.Tensor,
     Returns (logits [B, V_pad] in the model dtype, caches).
     """
     x = model.embed[tokens.long()].to(layers.torch_dtype(cfg.dtype))
-    rotation = (layers.rope_rotation(pos[:, None], cfg.head_dim,
+    rotation = (layers.rope_rotation(pos[:, None], transformer.rope_dim(cfg),
                                      cfg.rope_theta) if cfg.use_rope else None)
     for blk, kind, cache in zip(model.blocks, model.kinds, caches):
         x, _ = transformer.block_decode(blk, x, cfg, kind, cache, pos,

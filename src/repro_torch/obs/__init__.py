@@ -47,8 +47,9 @@ Layers (trace -> metrics -> probes -> decision)
                    ring keeping full span trees only for SLO-missed /
                    escalated / slowest-decile batches.
 
-The JAX package's benchmark gate (``obs/regression.py``) comes with the
-port's benchmarks.
+    [ gate ]     repro_torch.obs.regression — the BENCH gate: declarative
+                 MetricSpecs with noise tolerances, measured wall-clock
+                 speedups as a non-gating watch channel.
 
 Everything is off by default and cheap when off: a server without a tracer
 runs against NULL_TRACER, the kernel wrappers cost one ``is None`` test
@@ -66,6 +67,9 @@ from repro_torch.obs.probes import (
     KernelProbe, dominant_shape_label, install_kernel_probe,
     uninstall_kernel_probe,
 )
+from repro_torch.obs.regression import (
+    DEFAULT_SPECS, Finding, MetricSpec, Report, WatchEntry, compare,
+)
 from repro_torch.obs.slo import (
     AccuracyObjective, Alert, DeadlineObjective, LatencyObjective,
     LoadSignal, Objective, SLOMonitor, StragglerWatch, default_objectives,
@@ -80,7 +84,9 @@ __all__ = [
     "AccuracyObjective",
     "Alert",
     "Counter",
+    "DEFAULT_SPECS",
     "DeadlineObjective",
+    "Finding",
     "FlightEntry",
     "FlightRecorder",
     "Gauge",
@@ -88,16 +94,20 @@ __all__ = [
     "KernelProbe",
     "LatencyObjective",
     "LoadSignal",
+    "MetricSpec",
     "MetricsRegistry",
     "NULL_TRACER",
     "NullTracer",
     "Objective",
+    "Report",
     "Reservoir",
     "SLOMonitor",
     "Span",
     "StragglerWatch",
     "Tracer",
+    "WatchEntry",
     "WindowedRollup",
+    "compare",
     "current_tracer",
     "default_objectives",
     "default_registry",

@@ -51,6 +51,11 @@ class AggregateCache:
             self._entries.popitem(last=False)
             self.evictions += 1
 
+    def holds(self, servable: Servable, compression_ratio: float) -> bool:
+        """Whether a lookup would hit, without touching the meters."""
+        return (servable.name, servable.cache_key(compression_ratio)) \
+            in self._entries
+
     def get_or_build(
         self, servable: Servable, compression_ratio: float
     ) -> tuple[Any, bool]:

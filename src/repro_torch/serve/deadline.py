@@ -77,9 +77,10 @@ class DeadlineController:
 
     def fit_from_probes(
         self, kind: str, n_points: int, compression_ratio: float,
-        t_eps0: float, t_eps1: float, eps1: float,
+        t_eps0: float, t_eps1: float, eps1: float, *, t_fixed: float = 0.0,
     ) -> CostModel:
-        model = CostModel.fit(n_points, compression_ratio, t_eps0, t_eps1, eps1)
+        model = CostModel.fit(n_points, compression_ratio, t_eps0, t_eps1,
+                              eps1, t_fixed=t_fixed)
         self.set_model(kind, model)
         return model
 

@@ -21,7 +21,9 @@ paper's re-execute-instead-of-approximate straggler rule.
 """
 from __future__ import annotations
 
+import gc
 import os
+import statistics
 import time
 from typing import Any, Callable, Iterable
 
@@ -39,6 +41,33 @@ from repro_torch.serve.scheduler import ContinuousBatcher, ScheduledBatch
 
 # Escalated requests re-execute with this multiple of their original SLO.
 REEXEC_DEADLINE_FACTOR = 8.0
+CALIBRATE_RUNS = 5        # timed runs of each probe, after a warm-up
+
+
+def _median_times(clock: Callable[[], float],
+                  fns: Iterable[Callable[[], None]]) -> list[float]:
+    """Each of ``fns`` once (a warm-up: kernel builds), then the median of
+    CALIBRATE_RUNS timed runs of each, the functions in turns, so that a
+    slow spell of the host slows each alike (timed one after the other, a
+    pass at eps_max could measure no slower than one at eps 0, and a model
+    fitted on it grants eps 0 to every finite deadline): robust to
+    scheduler noise without the systematic underestimate a min would give
+    (grants sized from an underestimate miss their deadlines)."""
+    fns = list(fns)
+    for fn in fns:
+        fn()
+    ts = [[] for _ in fns]
+    for _ in range(CALIBRATE_RUNS):
+        for fn, t in zip(fns, ts):
+            t0 = clock()
+            fn()
+            t.append(clock() - t0)
+    return [statistics.median(t) for t in ts]
+
+
+def _full_collections() -> int:
+    """Full (generation 2) garbage collections so far in this process."""
+    return gc.get_stats()[2]["collections"]
 
 
 class Server:
@@ -132,8 +161,20 @@ class Server:
         fit would price a full batch at one row's work.  A timed pass is
         the work the server does around each run of a batch: padding, the
         run, the wait for the card, ``unpack`` (the copy of the answers to
-        the host) and ``error_bounds`` where the servable has them (after
-        stage 2 the server reads the accuracy proxy instead).
+        the host) and ``error_bounds`` where the servable has them, under a
+        scratch tracer of the server's kind, so that a run pays for the
+        engine's spans as a served one does.
+
+        The rest of a served batch's window, outside those passes, is timed
+        too and fitted into ``c_fixed``: the batch's spans (its root, a wait
+        span a request, the grant, the cache lookup and the two stages), the
+        grant, the cache lookup and the accuracy proxy.  A two-stage batch's
+        prediction counts the model at eps 0 once more (the second stage-1
+        pass that ``grant`` charges), and so ``c_fixed`` twice: each carries
+        half of that time.  Without it the model priced a relaxed kNN batch
+        some 20 % under its window on the card, and the load correction that
+        followed cut batches whose deadline had been derived at a correction
+        of 1.0.  The two probes are timed in turns (``_median_times``).
         """
         servable = self.servables[kind]
         policy = self.controller.policy
@@ -145,6 +186,11 @@ class Server:
         eps1 = max(policy.eps_max, self.controller.eps_grid[1])
         budget1 = eps_to_budget(servable.n_points, eps1)
 
+        scratch = Tracer(clock=self.clock) if self.tracer.enabled \
+            else NULL_TRACER
+        proxy_fn = getattr(servable, "accuracy_proxy", None)
+        outs: dict[int, Any] = {}
+
         def served_pass(refine_budget: int) -> None:
             padded = servable.pad_batch(payloads, n_pad)
             out = block_until_ready(
@@ -153,23 +199,36 @@ class Server:
             servable.unpack(out, n_pad)
             if bounds_fn is not None:
                 bounds_fn(out, n_pad)
+            outs[refine_budget] = out
 
-        def timed(refine_budget: int) -> float:
-            # Warmup (kernel build), then median-of-3: robust to scheduler noise
-            # without the systematic underestimate a min would give (grants
-            # sized from an underestimate miss their deadlines).
-            served_pass(refine_budget)
-            ts = []
-            for _ in range(3):
-                t0 = self.clock()
-                served_pass(refine_budget)
-                ts.append(self.clock() - t0)
-            return sorted(ts)[1]
+        def bookkeeping() -> None:
+            # what _execute_batch does around its two passes
+            t0 = self.clock()
+            with scratch.span("serve.batch", kind=kind, n=n_pad):
+                for i in range(n_pad):
+                    scratch.add_span("batcher.wait", t0, t0, rid=i,
+                                     deadline_s=0.0)
+                with scratch.span("deadline.grant") as sp:
+                    grant = self.controller.grant(
+                        kind, servable.n_points, float("inf"))
+                    sp.set(eps=grant.eps, escalate=grant.escalate)
+                with scratch.span("cache.lookup") as sp:
+                    sp.set(hit=self.cache.holds(servable, r))
+                with scratch.span("stage1"):
+                    pass
+                with scratch.span("stage2.refine"):
+                    if proxy_fn is not None:
+                        proxy_fn(outs[0], outs[budget1], n_pad)
 
-        t_eps0 = timed(0)
-        t_eps1 = timed(budget1)
+        with use_tracer(scratch):
+            t_eps0, t_eps1 = _median_times(
+                self.clock, (lambda: served_pass(0),
+                             lambda: served_pass(budget1)))
+            (t_host,) = _median_times(self.clock, (bookkeeping,))
+        half = t_host / 2
         self.controller.fit_from_probes(
-            kind, servable.n_points, r, t_eps0, t_eps1, eps1
+            kind, servable.n_points, r, t_eps0 + half, t_eps1 + half, eps1,
+            t_fixed=half,
         )
 
     def prewarm(
@@ -259,6 +318,7 @@ class Server:
             padded=batch.padded_size, reexecution=reexecution,
         ) as root:
             t_start = self.clock()
+            full_gc = _full_collections()
             if tracer.enabled:
                 # Queue wait per request, from clock values captured at
                 # admission (a span can't wrap work that already happened).
@@ -398,8 +458,13 @@ class Server:
             # Cold batches (first run of a shape or aggregate build) are deploy
             # cost, not steady-state serving cost: keep them out of the
             # correction — as are accuracy-SLO deviations (skip/boost),
-            # whose wall time no longer matches the grant's prediction.
-            if warmed and cache_hit and refine_budget == grant.refine_budget:
+            # whose wall time no longer matches the grant's prediction, and
+            # batches the garbage collector stopped for a full collection
+            # (a pause of 100 ms and more in a large process, 20 times a kNN
+            # batch on the card: one such ratio in the correction's high
+            # quantile cut every later grant of the window).
+            if warmed and cache_hit and refine_budget == grant.refine_budget \
+                    and _full_collections() == full_gc:
                 self.controller.observe(
                     batch.kind, grant.predicted_s, t_end - t_start
                 )

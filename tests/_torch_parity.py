@@ -70,6 +70,9 @@ BATCHED_TOPK_CASES = [
     (4, 1, 64, 1024, 16, "dot", 0.8, False, False),
     (4, 1, 64, 1024, 64, "dot", 0.8, False, False),
     (1, 1, 64, 1024, 64, "dot", 0.9, False, False),   # a prefill token
+    # deepseek-v2-236b's MLA selection: the pooled latent query, D = 576
+    (4, 1, 64, 576, 16, "dot", 0.8, False, False),
+    (4, 1, 64, 576, 64, "dot", 0.8, False, False),
     (3, 2, 10, 8, 14, "dot", 0.7, False, True),       # k > N: padding
     (2, 1, 20, 16, 5, "dot", 0.0, False, False),      # every point masked
     (2, 3, 30, 4, 12, "l2", 1.0, True, False),        # exact ties

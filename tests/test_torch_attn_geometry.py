@@ -1,7 +1,8 @@
 """The decode-attention kernels' launch geometry (``kernels/decode_geometry``),
-without a card: every selection slot, every written token and every centroid
-falls to exactly one warp of its (sequence, KV head)'s cluster, and the chunk
-sizes the wrappers pass fit the kernels' shared memory."""
+without a card: every (KV head, query head, value column) falls to exactly
+one cluster's tile, every selection slot, every written token and every
+centroid to exactly one warp of its cluster, and the chunk sizes the
+wrappers pass fit the kernels' shared memory."""
 import itertools
 import re
 from pathlib import Path
@@ -36,6 +37,8 @@ def test_geometry_mirrors_the_kernels_constants():
     assert _constexpr("decode_attn.cuh", "kCluster") == geo.CLUSTER
     assert _constexpr("decode_attn.cuh", "kWarps") == geo.WARPS
     assert geo.ROWS <= _constexpr("decode_attn.cuh", "kRows")
+    assert _constexpr("decode_attn.cuh", "kMaxG") == geo.HEAD_TILE
+    assert _constexpr("decode_attn.cuh", "kValueTile") == geo.VALUE_TILE
 
 
 def _units():
@@ -51,11 +54,33 @@ def test_units_number_the_cluster_warps_once():
     assert all(ranks[u] != ranks[u + 1] for u in range(geo.UNITS - 1))
 
 
+# (G, dv) of the decode shapes: qwen3-8b and the smoke configs, MQA, and
+# deepseek-v2-236b's absorbed MLA (128 heads over one latent KV head, 512
+# values) with a partial tile of each
+HEADS = [(4, 128), (2, 16), (8, 48), (128, 512), (16, 320), (12, 264)]
+
+
+@pytest.mark.parametrize("g,dv", HEADS)
 @pytest.mark.parametrize("b,s,kb,r,hkv", SWEEP)
-def test_grid_is_whole_clusters(b, s, kb, r, hkv):
-    gx, gy, gz = geo.grid(b, hkv)
-    assert gx == geo.CLUSTER and (gy, gz) == (hkv, b)
+def test_grid_is_whole_clusters(b, s, kb, r, hkv, g, dv):
+    gx, gy, gz = geo.grid(b, hkv, g, dv)
+    assert gx == geo.CLUSTER and gz == b
+    assert gy == hkv * -(-g // geo.HEAD_TILE) * -(-dv // geo.VALUE_TILE)
     assert (gx * gy * gz) % geo.CLUSTER == 0
+
+
+@pytest.mark.parametrize("g,dv", HEADS)
+@pytest.mark.parametrize("hkv", [1, 2, 8])
+def test_every_head_and_value_falls_to_one_tile(hkv, g, dv):
+    seen = []
+    for y in range(geo.grid(1, hkv, g, dv)[1]):
+        kvh, heads, cols = geo.tile(y, g, dv)
+        assert 0 <= kvh < hkv and len(heads) <= geo.HEAD_TILE
+        assert len(cols) <= geo.VALUE_TILE and cols.start % geo.VALUE_TILE \
+            == 0
+        seen += [(kvh, h, c) for h in heads for c in cols]
+    assert sorted(seen) == [(k, h, c) for k in range(hkv) for h in range(g)
+                            for c in range(dv)]
 
 
 @pytest.mark.parametrize("b,s,kb,r,hkv", SWEEP)
@@ -90,16 +115,18 @@ def test_every_centroid_falls_to_one_warp(b, s, kb, r, hkv):
 @pytest.mark.parametrize("itemsize", [2, 4])
 @pytest.mark.parametrize("b,s,kb,r,hkv", SWEEP)
 def test_chunks_fit_the_row_budget(b, s, kb, r, hkv, itemsize):
-    for dk, dv in itertools.product((16, 64, 128, 256), (16, 48, 128, 256)):
+    for dk, dv in itertools.product((16, 64, 128, 256, 576),
+                                    (16, 48, 128, 256, 320, 512)):
         cap = 32 if s >= 1024 else 40
         rows = geo.refine_rows(r, cap, dk, dv, itemsize)
-        one = geo.row_bytes(dk, itemsize) + geo.row_bytes(dv, itemsize)
+        dvt = min(dv, geo.VALUE_TILE)
+        one = geo.row_bytes(dk, itemsize) + geo.row_bytes(dvt, itemsize)
         assert 1 <= rows <= geo.ROWS
         assert rows * one <= geo.ROW_BUDGET
         tok, cen = geo.flat_rows(s, kb, dk, dv, itemsize)
         assert 1 <= tok <= geo.ROWS and 1 <= cen <= geo.ROWS
         assert tok * one <= geo.ROW_BUDGET
-        assert cen * (geo.row_bytes(dk, 4) + geo.row_bytes(dv, 4)) \
+        assert cen * (geo.row_bytes(dk, 4) + geo.row_bytes(dvt, 4)) \
             <= geo.ROW_BUDGET
 
 
@@ -115,3 +142,10 @@ def test_qwen3_8b_chunks_hold_a_warps_decode_rows():
     (valid_len 160 over 64 buckets)."""
     assert geo.refine_rows(4, 32, 128, 128, 2) == 16
     assert geo.flat_rows(1024, 64, 128, 128, 2) == (16, 8)
+
+
+def test_mla_chunks_fit_a_tile_of_latent_rows():
+    """deepseek-v2-236b's latent rows (576-wide keys, a 256-column value
+    tile, bf16): seven a chunk; its f32 centroids three."""
+    assert geo.refine_rows(16, 32, 576, 512, 2) == 7
+    assert geo.flat_rows(1024, 64, 576, 512, 2) == (7, 3)

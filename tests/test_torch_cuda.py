@@ -609,6 +609,10 @@ def _agg_refine_case(dev, dtype, b, kb, cap, hkv, g, dk, dv, r, seed):
     (2, 128, 32, 8, 4, 128, 128, 100),        # R above the cluster's warps
     (2, 10, 40, 1, 8, 64, 48, 5),             # MQA, dv != dk, C > 32
     (2, 64, 32, 1, 8, 128, 128, 64),          # MQA: a cluster a sequence
+    (4, 64, 32, 1, 128, 576, 512, 16),        # deepseek-v2-236b MLA, rf 0.25
+    (1, 64, 32, 1, 128, 576, 512, 64),        # MLA prefill, rf 1.0
+    (2, 64, 32, 1, 16, 576, 320, 16),         # a partial value tile
+    (2, 16, 8, 2, 12, 32, 264, 5),            # partial head and value tiles
 ])
 def test_cuda_agg_refine_attention(cuda, dtype, b, kb, cap, hkv, g, dk, dv,
                                    r):
@@ -651,6 +655,9 @@ def _agg_attention_case(dev, dtype, b, s, kb, hq, hkv, dk, dv, seed):
     (2, 64, 8, 4, 2, 16, 16),                 # smoke heads
     (4, 1024, 64, 32, 8, 128, 128),           # qwen3-8b
     (2, 128, 10, 8, 1, 64, 48),               # MQA, dv != dk
+    (4, 1024, 64, 128, 1, 576, 512),          # deepseek-v2-236b MLA
+    (2, 1024, 64, 16, 1, 576, 320),           # a partial value tile
+    (2, 64, 8, 24, 2, 32, 264),               # partial head and value tiles
 ])
 def test_cuda_aggregated_attention(cuda, dtype, b, s, kb, hq, hkv, dk, dv):
     case = _agg_attention_case(cuda, dtype, b, s, kb, hq, hkv, dk, dv,
@@ -738,10 +745,13 @@ def test_cuda_decode_attention_refuses_what_it_does_not_take(cuda):
                k=args[1][..., :12].contiguous())
     with pytest.raises(ValueError, match="value width"):
         refine(v=args[2][..., :12].contiguous())
-    case = _agg_attention_case(cuda, torch.float32, 2, 64, 8, 32, 2, 16, 16,
+    case = _agg_attention_case(cuda, torch.float32, 2, 64, 8, 5, 2, 16, 16,
                                0)
-    with pytest.raises(ValueError, match="query heads per KV head"):
+    with pytest.raises(ValueError, match="query heads over"):
         ops.aggregated_attention_decode(*case, scale=scale)
+    with pytest.raises(ValueError, match="key width"):
+        refine(q=normal_on(cuda, 2, 2, 2, 1032),
+               k=normal_on(cuda, 2, 8, 4, 2, 1032).to(torch.bfloat16))
     case = _agg_attention_case(cuda, torch.float32, 2, 64, 8, 4, 2, 16, 16,
                                0)
     with pytest.raises(TypeError, match="valid_len"):

@@ -85,15 +85,14 @@ def test_serve_and_store_hold_only_ported_modules():
     ``runtime``, ``checkpoint``, ``optim``, ``launch`` and ``data``
     packages has its counterpart at the same path in the reference, and
     ``repro_torch.serve`` and ``repro_torch.obs`` export the reference's
-    names (``obs`` without the benchmark gate of ``obs/regression.py``,
-    which comes with the port's benchmarks)."""
+    names (``obs`` with the benchmark gate of ``obs/regression.py``)."""
     ref_root = ROOT / "src" / "repro"
     for pkg in ("serve", "store", "obs", "runtime", "checkpoint", "optim",
                 "launch", "data"):
         for path in (PORT / pkg).rglob("*.py"):
             rel = path.relative_to(PORT)
             assert (ref_root / rel).exists(), rel
-    assert not (PORT / "obs" / "regression.py").exists()
+    assert (PORT / "obs" / "regression.py").exists()
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -107,9 +106,7 @@ def test_serve_and_store_hold_only_ported_modules():
     assert out.returncode == 0, out.stderr
     serve_names, obs_names = out.stdout.strip().splitlines()
     ref_serve = _all_of(ref_root / "serve" / "__init__.py")
-    ref_obs = _all_of(ref_root / "obs" / "__init__.py") - {
-        "DEFAULT_SPECS", "Finding", "MetricSpec", "Report", "WatchEntry",
-        "compare"}
+    ref_obs = _all_of(ref_root / "obs" / "__init__.py")
     assert serve_names == str(sorted(ref_serve))
     assert obs_names == str(sorted(ref_obs))
 

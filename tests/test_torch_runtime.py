@@ -565,8 +565,12 @@ def _drain_guard(side):
     with pytest.raises(RuntimeError, match="max_steps"):
         server.drain(max_steps=1)
     rest = server.drain()
+    # rids come from each package's process-wide counter, which the tests
+    # run before this one in the same process advance unequally: compare
+    # them from the scenario's first
+    first = responses[0].rid
     return ([(r.reexecuted, r.escalated, r.answer) for r in responses],
-            sorted((r.rid, r.reexecuted, r.answer) for r in rest))
+            sorted((r.rid - first, r.reexecuted, r.answer) for r in rest))
 
 
 def test_drain_bounded_and_reexecution_never_reescalates():
@@ -716,6 +720,13 @@ def test_chip_smoke_fleet_phase_runs_on_the_cpu(monkeypatch):
 
     cs = chip_smoke()
     plain_kernels(monkeypatch)
+    # The hedge rule re-dispatches the slowest domain when it ran at least
+    # 4x the median.  A domain's run here takes a few ms, and on a host
+    # shared with other jobs the eight domains' times spread that far
+    # apart on their own (9 hedges in 24 runs of one such run), so an 8x
+    # slowdown need not make the slowed domain the one hedged: the CPU
+    # run slows it 100x (its stall still under FLEET_MAX_STALL_S).
+    monkeypatch.setattr(cs, "FLEET_SLOW_FACTOR", 100.0)
     x, y = make_mfeat_like(torch.Generator().manual_seed(0),
                            n_points=8192 + 16, n_features=16, n_classes=10,
                            device="cpu")

@@ -47,6 +47,7 @@ from repro_torch.serve import (
     AggregateCache, ContinuousBatcher, DeadlineController, FrontDoor,
     LoadShedLadder, Overloaded, Request, Response, Server, TenantSpec,
 )
+from repro_torch.serve import server as server_mod
 from repro_torch.serve.demo import build_demo_server, prepare_demo_server
 from repro_torch.serve.lm import DecodeEngine, LMServable, lm_pad_sizes
 from repro_torch.serve.metrics import percentile
@@ -548,10 +549,12 @@ def test_calibrate_times_finished_runs(knn_servable, monkeypatch):
     monkeypatch.setattr(device, "tensors", lambda out: iter([FakeCuda()]))
     server = _server(_fresh_knn(knn_servable))
     server.calibrate("knn", batch=4)
-    # two probes, each a warm-up and three timed runs
-    assert synced == [torch.device("cuda", 1)] * 8
+    # two probes, each a warm-up and CALIBRATE_RUNS timed runs; the host
+    # term (spans, grant, cache lookup, accuracy proxy) waits for nothing
+    assert synced == [torch.device("cuda", 1)] * (
+        2 * (1 + server_mod.CALIBRATE_RUNS))
     model = server.controller.models["knn"]
-    assert model.c_stage1 >= 0 and model.c_fixed == 0.0
+    assert model.c_stage1 >= 0 and model.c_fixed > 0.0
 
 
 @pytest.mark.parametrize("kind", ["knn", "cf"])
@@ -576,9 +579,10 @@ def test_calibrate_probes_a_full_batch_of_real_rows(knn_servable,
     fresh.run, fresh.unpack = recording, unpacking
     Server([fresh], controller=_controller()).calibrate(kind, batch=4)
     want = fresh.probe_payload()
-    assert seen[1::2] == [4] * 8           # every run followed by its unpack
+    runs = 2 * (1 + server_mod.CALIBRATE_RUNS)     # two probes
+    assert seen[1::2] == [4] * runs        # every run followed by its unpack
     seen = seen[::2]
-    assert len(seen) == 8
+    assert len(seen) == runs
     for batch in seen:
         for col, w in zip(batch, want):
             assert col.shape[0] == 4
@@ -1112,3 +1116,134 @@ def test_chip_smoke_serve_phase_runs_on_the_cpu(monkeypatch):
     assert summary["warm_start"]["cache"]["restored_hits"] == 1
     assert summary["front_door"]["rejected"]["quota"] >= 27
     assert summary["knn"]["classes"]["hopeless"]["escalated"] == 256
+
+
+def test_batches_with_a_full_collection_stay_out_of_the_correction(
+        knn_servable):
+    """A warm batch feeds the load correction its observed time; one
+    during which the garbage collector ran a full collection does not (its
+    window holds the pause, not the serving cost)."""
+    import gc
+
+    fresh = _fresh_knn(knn_servable)
+    server = _server(fresh)
+    server.prewarm("knn", batch=4)
+    observed, observe = [], server.controller.observe
+
+    def observing(kind, predicted_s, observed_s):
+        observed.append(kind)
+        observe(kind, predicted_s, observed_s)
+
+    server.controller.observe = observing
+    q = fresh.train_x[0]
+    server.submit("knn", (q,), deadline_s=10.0)
+    server.drain()
+    assert observed == ["knn"]
+    run = fresh.run
+
+    def collecting(prepared, batch, *, refine_budget):
+        gc.collect()
+        return run(prepared, batch, refine_budget=refine_budget)
+
+    fresh.run = collecting
+    server.submit("knn", (q,), deadline_s=10.0)
+    (resp,) = server.drain()
+    assert resp.refined is not None
+    assert observed == ["knn"]
+    fresh.run = run
+    server.submit("knn", (q,), deadline_s=10.0)
+    server.drain()
+    assert observed == ["knn", "knn"]
+
+
+@pytest.mark.parametrize("power", [-12, -9, -1, 3])
+def test_chip_smoke_slo_deadlines_stay_in_one_batcher_class(power):
+    """``chip_smoke.one_slo_class`` raises a deadline that lies less than
+    SLO_CLASS_MARGIN above a power of two to that margin above it, and
+    leaves every other one as it is.  A wave of requests with one such
+    deadline, submitted over less than the margin, forms one batch; with
+    the deadline just above the power of two the batcher splits it, the
+    earlier requests in the class below (a behaviour of the reference's
+    batcher that the phase steers clear of)."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke as cs
+
+    edge = 2.0 ** power
+    margin = cs.SLO_CLASS_MARGIN
+    for d in (edge, edge * 1.01, edge * (1 + margin / 2)):
+        assert cs.one_slo_class(d) == pytest.approx(edge * (1 + margin),
+                                                    rel=1e-12)
+    for d in (edge * (1 + margin), edge * 1.5, edge * 1.99):
+        assert cs.one_slo_class(d) == d
+
+    def batches(deadline_s):
+        batcher = ContinuousBatcher(max_batch=64, pad_sizes=(64,))
+        spread = edge * margin * 0.9        # the wave's submission time
+        for i in range(8):
+            batcher.submit(Request(kind="knn", payload=(),
+                                   deadline_s=deadline_s,
+                                   arrival_t=spread * i / 7))
+        sizes, now = [], spread
+        while (b := batcher.next_batch(now)) is not None:
+            sizes.append(b.n)
+        return sizes
+
+    assert batches(edge * 1.01) != [8]
+    assert batches(cs.one_slo_class(edge * 1.01)) == [8]
+
+
+@pytest.mark.parametrize("variant", ["as-is", "no-host-term", "no-turns",
+                                     "no-gc-guard", "no-class-margin"])
+def test_serve_relaxed_tool_serves_each_variant_on_the_cpu(monkeypatch,
+                                                             variant):
+    """``tools/torch_serve_relaxed.py``'s serving at a small size, with
+    counting plain versions in place of the kernels: each variant serves
+    the waves with its part of the calibration taken out, and its patches
+    are undone after."""
+    import importlib.util
+    import sys
+    from pathlib import Path
+
+    from _torch_parity import plain_kernels
+    from repro_torch.apps import knn
+    from repro_torch.data.synthetic import make_mfeat_like
+
+    root = Path(__file__).resolve().parent.parent
+    sys.path.insert(0, str(root))
+    import chip_smoke as cs
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_serve_relaxed", root / "tools" / "torch_serve_relaxed.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    assert set(tool.VARIANTS) == {
+        "as-is", "no-host-term", "no-turns", "no-gc-guard",
+        "no-class-margin"}
+    plain_kernels(monkeypatch)
+    x, y = make_mfeat_like(_gen(0), n_points=8192 + 256, n_features=16,
+                           n_classes=10, device="cpu")
+    before = {(m, a): getattr(sys.modules[m], a)
+              for m, a, _ in sum(tool.VARIANTS.values(), [])
+              if m in sys.modules}
+    fitted = []
+    monkeypatch.setattr(server_mod.Server, "calibrate", (
+        lambda calibrate: lambda self, kind, **kw: (
+            calibrate(self, kind, **kw),
+            fitted.append(self.controller.models[kind]))[0])(
+        server_mod.Server.calibrate))
+    restore = tool.patched(variant)
+    try:
+        r = tool.serving(torch, cs, knn, (x[256:], y[256:], x[:256]),
+                         [(q,) for q in x[:256]])
+    finally:
+        restore()
+    for (m, a), v in before.items():
+        assert getattr(sys.modules[m], a) is v
+    assert set(r) >= {"ok", "eps", "escalated", "correction", "model", "gc",
+                      "batches", "wait", "cut"}
+    assert r["batches"] >= cs.SERVE_WAVES
+    (model,) = fitted
+    assert (model.c_fixed == 0.0) == (variant == "no-host-term")

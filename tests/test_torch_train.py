@@ -227,11 +227,15 @@ def test_block_apply_refuses_unported_kinds():
     _, model, cfg, _ = _ref_model()
     x = torch.zeros(1, 4, cfg.d_model)
     pos = torch.zeros(1, 4, dtype=torch.int64)
-    for bad in (cfg.with_(sliding_window=8), cfg.with_(n_experts=4),
-                cfg.with_(mla=True)):
+    # MoE and MLA blocks are ported; these kinds are not
+    for bad in (cfg.with_(sliding_window=8),
+                cfg.with_(is_encoder_decoder=True), cfg.with_(mrope=True)):
         with pytest.raises(NotImplementedError):
             transformer.block_apply(model.blocks[0], x, bad, "attn",
                                     positions=pos)
+    with pytest.raises(NotImplementedError):
+        transformer.block_apply(model.blocks[0], x, cfg, "mamba",
+                                positions=pos)
 
 
 # ---------------------------------------------------------------------------
