@@ -97,6 +97,36 @@ What it does, in order:
      logits agree within 1e-4, in both layouts.  It prints tokens/s, step
      p50, prefill ms a token and peak memory per model and layout, with
      the card's name and power limit;
+   * the other five model families (the arch phase, after the moe phase),
+     each at its published widths, bf16, random from seed 0, through
+     ``DecodeEngine`` and the LM phase's path (4 slots, s_max 1024, 64
+     buckets of 32 slots): zamba2-7b (d_model 3,584, Mamba2 of state 64
+     and 112 heads of 64, the shared attention's 32 KV heads of 112, d_ff
+     14,336, vocab 32,000) cut from 81 layers to 15 (two units of five
+     Mamba2 blocks and the shared attention, then three Mamba2: 2
+     aggregated slots on one weight set), gemma3-1b (26 layers, 22
+     sliding-window layers of 512 on exact ring buffers and 4 global ones
+     aggregated; 1 KV head of 256, G 4; vocab 262,144, tied), qwen2-vl-2b
+     (28 layers, 2 KV heads of 128, G 6, qkv bias; the engine's path
+     rotates by standard RoPE, as the JAX package's), whisper-tiny (4
+     decoder and 4 encoder layers, 6 heads of 64, GELU, sinusoidal
+     positions, the decoder's zero cross caches) and xlstm-350m (21 mLSTM
+     and 3 sLSTM blocks of 1,024, no attention); 64-token prompts, one
+     untimed and 6 timed decode steps at rf 0, 0.25 and 1.0 (xLSTM, with
+     no aggregated layer, at 1.0 alone), zamba2 and gemma3 in both
+     layouts, the others flat.  One table (``DECODE_MODELS``) and one
+     function (``decode_phase``) serve both phases.  Checked as the moe phase,
+     a launch of each kernel an aggregated layer (2, 4, 28, 4 and 0 a
+     token), every kernel's prefill inputs captured at the new head
+     shapes, finite logits; then each model's f32 guard one pattern unit
+     deep (zamba2 6, gemma3 6, qwen2-vl 2, whisper 2 layers; xLSTM one
+     mLSTM and one sLSTM block: f32 rounding at its 8-block unit drifts
+     past the tolerance between any two orders of the sums), one
+     prompt and 8 tokens at rf 1.0: tokens equal to the exact path's and
+     logits within 1e-4, the exact path ``forward`` over the prompt and
+     the generated tokens (gemma3's prompt of 520 tokens, past its
+     window: the ring buffers wrap) or, for whisper, whose forward attends
+     to encoder memory that decode never sees, the exact decode;
    * the serving stack (``repro_torch.serve`` and ``repro_torch.obs``):
      three ``Server``s, each under a live ``Tracer``, a ``FlightRecorder``,
      a 1 s rollup and ``default_objectives()``: kNN over all 2.3 M points
@@ -180,8 +210,8 @@ What it does, in order:
    (the serve phase's: one batch of each kNN and CF wave held against a
    direct run, and the LM server's relaxed wave: the first call of each
    shape, prefill at B 1 and decode at B 2 at rf 0 and 0.25, with 64
-   buckets over 1024 slots of which a few hold tokens; the moe phase's
-   MLA and MoE-model shapes, each model, layout and level),
+   buckets over 1024 slots of which a few hold tokens; the moe and arch
+   phases' head shapes, each model, layout and level),
    and times kernel, plain version and, where one PyTorch call computes the
    same function, that call (``library_ms``); ``distance_topk`` at each of
    its shapes: the kNN shapes (wide regime) and the LM's batched ones (B 4
@@ -213,7 +243,10 @@ jobs' RMSE loss under 6 %.
 The decode-attention kernels agree with their plain versions within rtol
 2e-5 plus atol 2e-5 (the JAX package's attention tolerance), in f32 on the
 same cache values, bf16 or f32; the LM's tokens on the card equal those on
-the CPU and its logits agree within 2e-5 (smoke config, f32).
+the CPU and its logits agree within 2e-5 (smoke config, f32, 6 decode steps
+at every refine_frac of the LM sweep), as do the arch phase's five smoke
+configs', each with one forward (whisper with frames, qwen2-vl with an
+M-RoPE grid whose three rows differ).
 
 It exits non-zero, printing no result, when there is no CUDA device, when
 the package is not beside it, or when any check fails.
@@ -231,6 +264,7 @@ import sys
 import time
 from functools import partial
 from pathlib import Path
+from typing import NamedTuple
 
 N_TRAIN = 2_300_000   # mfeat-factors: 2.3 M points (src/repro/data/synthetic.py)
 N_FEATURES = 217
@@ -302,29 +336,64 @@ LM_GUARD_TOL = 1e-4           # benchmarks/decode_bench.py:130
 ATTN_TOL = 2e-5               # tests/test_kernels.py:108
 LM_CPU_TOL = 2e-5             # card vs CPU, smoke config, f32
 
-# MoE and MLA decode (moe phase): each model at its published widths, its
-# depth cut to the layers named here (the first_k_dense head block dense,
-# the rest MoE), bf16, random from seed 0, served by DecodeEngine as the LM
+# MoE and MLA decode (the moe phase) and the other five model families (the
+# arch phase): each model of DECODE_MODELS at its published widths and the
+# depth named (the first_k_dense head block of the MoE models dense, the
+# rest MoE), bf16, random from seed 0, served by DecodeEngine as the LM
 # phase serves qwen3-8b (LM_SLOTS slots, LM_S_MAX, LM_COMPRESSION) in the
-# layouts named: MOE_PROMPT-token prompts prefilled, then MOE_STEPS decode
-# steps at each refine_frac of MOE_SWEEP after one untimed step.  The f32
-# guard: deepseek-v2-236b MOE_GUARD_LAYERS deep without capacity drops
-# (tests/test_models.py:48's no-drop variant: a batch of four routes other
-# tokens than the batch-1 exact decode), MOE_GUARD_PROMPTS prompts of
-# MOE_GUARD_PROMPT tokens and MOE_GUARD_NEW tokens each (cut from the LM
-# guard's four of 128 and 32: its prefill is host-bound).
-MOE_MODELS = (("deepseek-v2-236b", 3, ("bucket_major", "flat")),
-              ("moonshot-v1-16b-a3b", 4, ("flat",)))
-MOE_PROMPT = 128
-MOE_SWEEP = (0.0, 0.25, 1.0)
-MOE_STEPS = 6
-MOE_GUARD_ARCH = "deepseek-v2-236b"
-MOE_GUARD_LAYERS = 2
-MOE_GUARD_PROMPTS = 2
-MOE_GUARD_PROMPT = 32
-MOE_GUARD_NEW = 8
+# layouts named: ``prompt``-token prompts prefilled (cut from the LM
+# phase's: a prefill token is host-bound), one untimed step, then
+# DECODE_STEPS steps at each refine_frac of DECODE_SWEEP, or at 1.0 alone
+# for a model without aggregated layers (xLSTM), where every level runs the
+# same work.  zamba2-7b is cut from 81 layers to 15: two units of five
+# Mamba2 blocks and the shared attention, then the three-Mamba2 tail.
+# Then the row's f32 guard, if it has one: the model at its published
+# widths, cut as ``guard`` says, ``guard_prompts`` prompts of
+# ``guard_prompt`` tokens and DECODE_GUARD_NEW tokens each, at rf 1.0 the
+# engine's tokens equal the exact path's and its logits agree within
+# LM_GUARD_TOL.  The exact path (``exact``) is ``forward`` over the prompt
+# and the generated tokens, or a batch-1 exact decode (agg_kv off): for MLA
+# (``mla_decode`` over the latent cache; deepseek-v2-236b without capacity
+# drops, tests/test_models.py:48's no-drop variant: a batch of two routes
+# other tokens than the batch-1 decode) and for whisper, whose forward
+# attends to encoder memory that decode never sees.  Each guard is one
+# pattern unit deep, but xLSTM's: one mLSTM and one sLSTM block, since f32
+# rounding at its 8-block unit drifts past LM_GUARD_TOL between any two
+# orders of the same sums, the card's forward against the CPU's among them
+# (tools/torch_f32_drift.py, PERF.md).  gemma3's guard prompt runs past its
+# 512-token window, so its ring buffers wrap; the others' 57 tokens make
+# the forward 64 tokens long (zamba2's SSD chunk).
+class DecodeModel(NamedTuple):
+    phase: str                    # "moe" or "arch"
+    arch: str
+    n_layers: int                 # the depth served
+    layouts: tuple
+    prompt: int                   # tokens a prompt on the path
+    guard: dict | None            # the f32 guard's cut; None: no guard
+    guard_prompts: int = 1
+    guard_prompt: int = 57
+    exact: str = "forward"        # the guard's exact path: or "decode"
+
+
 MOE_NO_DROP = 100.0           # capacity_factor: every chosen expert keeps
                               # every token (tests/test_models.py:48)
+DECODE_MODELS = (
+    DecodeModel("moe", "deepseek-v2-236b", 3, LM_LAYOUTS, 128,
+                {"n_layers": 2, "capacity_factor": MOE_NO_DROP},
+                guard_prompts=2, guard_prompt=32, exact="decode"),
+    DecodeModel("moe", "moonshot-v1-16b-a3b", 4, ("flat",), 128, None),
+    DecodeModel("arch", "zamba2-7b", 15, LM_LAYOUTS, 64, {"n_layers": 6}),
+    DecodeModel("arch", "gemma3-1b", 26, LM_LAYOUTS, 64, {"n_layers": 6},
+                guard_prompt=520),
+    DecodeModel("arch", "qwen2-vl-2b", 28, ("flat",), 64, {"n_layers": 2}),
+    DecodeModel("arch", "whisper-tiny", 4, ("flat",), 64,
+                {"n_layers": 2, "n_encoder_layers": 2}, exact="decode"),
+    DecodeModel("arch", "xlstm-350m", 24, ("flat",), 64,
+                {"n_layers": 2, "pattern": ("mlstm", "slstm")}),
+)
+DECODE_SWEEP = (0.0, 0.25, 1.0)
+DECODE_STEPS = 6
+DECODE_GUARD_NEW = 8
 
 # The serving stack: three servers, each over one servable that holds a
 # whole dataset (the deployment of one card): kNN over all N_TRAIN points
@@ -1714,14 +1783,30 @@ def lm_kl(torch, p_logits, q_logits) -> float:
 
 
 def lm_max_count(engine) -> tuple[int, int]:
-    """(largest bucket count over every layer and slot, slots a bucket)."""
+    """(largest bucket count over every aggregated layer and slot, slots a
+    bucket); (0, 0) for a model without aggregated layers."""
+    from repro_torch.models import model as model_lib
     from repro_torch.models.aggregated_kv import BucketMajorKVCache
 
-    worst = max(int(c.counts.max()) for c in engine.state)
-    c0 = engine.state[0]
-    cap = (c0.capacity if isinstance(c0, BucketMajorKVCache)
+    caches = model_lib.aggregated_caches(engine.state)
+    if not caches:
+        return 0, 0
+    worst = max(int(c.counts.max()) for c in caches)
+    cap = (caches[0].capacity if isinstance(caches[0], BucketMajorKVCache)
            else 2 * engine.cfg.agg_compression)
     return worst, cap
+
+
+def n_aggregated(cfg) -> int:
+    """The layers that decode over an aggregated cache: each makes one
+    attention launch and one selection a token (the layer count for the
+    attention-only models; zamba2's shared-attention slots, gemma3's global
+    layers; none in xLSTM)."""
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import transformer
+
+    return sum(transformer.uses_agg(cfg, kind)
+               for kind in model_lib.block_kinds(cfg))
 
 
 def lm_path(torch, ops, probe, engine_cls, model, cfg, layout, prompts,
@@ -1730,25 +1815,28 @@ def lm_path(torch, ops, probe, engine_cls, model, cfg, layout, prompts,
     """One model and layout of the LM path: prefill every prompt at batch
     1, then at each refine_frac of ``sweep`` re-insert the same prefixes,
     take ``warm`` untimed decode steps and ``steps`` timed ones.  One
-    launch of the layout's attention kernel and one batched selection a
-    layer, a prefill token and a decode step (none of either at rf 0 but
-    the flat kernel, which takes the centroids too), else the run fails.
-    The kernels' inputs are captured (cloned) at the first prompt's last
-    position (the batch-1 prefill shapes; each layer calls each kernel
-    once a token, so the probe lets (length - 1) x layers calls of a key
-    pass first), and every kernel's must be, and during the untimed steps.
+    launch of the layout's attention kernel and one batched selection an
+    aggregated layer (``n_aggregated``), a prefill token and a decode step
+    (none of either at rf 0 but the flat kernel, which takes the centroids
+    too), else the run fails.  The kernels' inputs are captured (cloned) at
+    the first prompt's last position (the batch-1 prefill shapes; each
+    aggregated layer calls each kernel once a token, so the probe lets
+    (length - 1) x layers calls of a key pass first), and every kernel's
+    must be, and during the untimed steps; a model without aggregated
+    layers (xLSTM) must launch none.
     ``name`` heads the lines printed and (lower-cased) the ``jobs`` keys.
     Returns the per-level summary and the path's launch counts."""
     path, key = f"{name} {layout}", f"{name.lower()} {layout}"
     cfg = cfg.with_(agg_layout=layout)
     kernels = LM_KERNELS[layout]
+    n_agg = n_aggregated(cfg)
     torch.cuda.reset_peak_memory_stats()
     engine = engine_cls(model, cfg, max_slots=LM_SLOTS, s_max=s_max,
                         generator=torch.Generator(dev).manual_seed(7))
     ops.reset_launch_counts()
     prefixes, prefill_ms = [], []
     probe.tag = f"{path} prefill"
-    probe.skip = (prompts.shape[1] - 1) * cfg.n_layers
+    probe.skip = (prompts.shape[1] - 1) * n_agg
     for i, prompt in enumerate(prompts):
         ops.set_probe(probe if i == 0 else None)
         pf, ms = _host_ms(torch, lambda prompt=prompt: engine.prefill(prompt))
@@ -1758,7 +1846,7 @@ def lm_path(torch, ops, probe, engine_cls, model, cfg, layout, prompts,
     probe.skip = 0
     caught = {op for op, calls in probe.calls.items()
               if any(k[0] == probe.tag for k in calls)}
-    if not caught >= set(kernels):
+    if n_agg and not caught >= set(kernels):
         fail(f"{path}: prefill calls of {sorted(set(kernels) - caught)} not "
              "captured")
     counts = ops.launch_counts()
@@ -1768,9 +1856,9 @@ def lm_path(torch, ops, probe, engine_cls, model, cfg, layout, prompts,
           f"batch 1: {[round(m, 1) for m in prefill_ms]} ms "
           f"({sum(prefill_ms) / prompts.size:.2f} ms a token), launches a "
           f"token {per_token}")
-    if any(n != cfg.n_layers for n in per_token.values()):
-        fail(f"{path} prefill: {per_token} launches a token, expected one a "
-             f"layer ({cfg.n_layers})")
+    if any(n != n_agg for n in per_token.values()):
+        fail(f"{path} prefill: {per_token} launches a token, expected one an "
+             f"aggregated layer ({n_agg})")
     ops.set_probe(probe)
     for rf in sweep:
         probe.tag = f"{path} rf={rf}"
@@ -1785,9 +1873,8 @@ def lm_path(torch, ops, probe, engine_cls, model, cfg, layout, prompts,
         after = ops.launch_counts()
         launches = {op: after[op] - before[op] for op in kernels}
         per_step = {op: n / steps for op, n in launches.items()}
-        want = {"distance_topk": cfg.n_layers if rf > 0 else 0,
-                kernels[1]: cfg.n_layers if rf > 0 or layout == "flat"
-                else 0}
+        want = {"distance_topk": n_agg if rf > 0 else 0,
+                kernels[1]: n_agg if rf > 0 or layout == "flat" else 0}
         if per_step != want:
             fail(f"{path} rf={rf}: {per_step} launches a step, expected "
                  f"{want}")
@@ -1827,7 +1914,8 @@ def lm_path(torch, ops, probe, engine_cls, model, cfg, layout, prompts,
     print(f"{path}: prefill {summary['prefill_ms_a_token']:.2f} ms a token, "
           f"peak {summary['peak_gib']:.1f} GiB")
     counts = ops.launch_counts()
-    check_launched(path, counts, kernels)
+    if n_agg:
+        check_launched(path, counts, kernels)
     return summary, counts
 
 
@@ -1851,37 +1939,51 @@ def lm_exact_decode(torch, model_lib, model, cfg, prompt, n_new, *,
 
 
 def lm_guard(torch, model_lib, engine_cls, model, cfg, prompts, n_new, *,
-             name=f"LM guard {LM_ARCH}", dev="cuda", s_max=LM_S_MAX) -> dict:
+             layouts=LM_LAYOUTS, exact="decode", name=f"LM guard {LM_ARCH}",
+             dev="cuda", s_max=LM_S_MAX) -> dict:
     """decode_bench's exactness guard on an f32 ``cfg``: at refine_frac 1.0
-    the engine's tokens equal an exact decode's (agg_kv off: exact attention,
-    or for MLA ``mla_decode`` over the latent cache) and its logits agree
-    within LM_GUARD_TOL, in both layouts (TF32 is off for every f32
-    product)."""
-    exact = [lm_exact_decode(torch, model_lib, model, cfg.with_(agg_kv=False),
-                             p, n_new, dev=dev, s_max=s_max) for p in prompts]
+    the engine's tokens equal the exact path's and its logits agree within
+    LM_GUARD_TOL, in each of ``layouts`` (TF32 is off for every f32
+    product).  The exact path: for ``exact="decode"`` a batch-1 exact
+    decode (agg_kv off: exact attention, or for MLA ``mla_decode`` over the
+    latent cache), for ``"forward"`` ``forward`` over each prompt and the
+    tokens the engine generated from it."""
+    what = {"decode": "exact decode", "forward": "forward"}[exact]
+    if exact == "decode":
+        ref = [lm_exact_decode(torch, model_lib, model, cfg.with_(agg_kv=False),
+                               p, n_new, dev=dev, s_max=s_max)
+               for p in prompts]
     out = {}
-    for layout in LM_LAYOUTS:
+    for layout in layouts:
         engine = engine_cls(model, cfg.with_(agg_layout=layout),
                             max_slots=len(prompts), s_max=s_max,
                             generator=torch.Generator(dev).manual_seed(7))
         prefixes = [engine.prefill(p) for p in prompts]
         toks, logits, _ = lm_generate(torch, engine, prefixes, 1.0, n_new - 1)
+        if exact == "forward":
+            ref = []
+            for p, t in zip(prompts, toks):
+                seq = torch.cat([torch.as_tensor(p, device=dev).long(),
+                                 t[:-1].long()])[None]
+                lg = model_lib.forward(model, seq, cfg)[0, len(p) - 1:].float()
+                ref.append((lg.argmax(-1), lg))
         worst, cap = lm_max_count(engine)
         err = max(float((logits[i] - ex_l).abs().max())
-                  for i, (_, ex_l) in enumerate(exact))
+                  for i, (_, ex_l) in enumerate(ref))
         same = all(torch.equal(toks[i].long(), ex_t.long())
-                   for i, (ex_t, _) in enumerate(exact))
+                   for i, (ex_t, _) in enumerate(ref))
         close = all(torch.allclose(logits[i], ex_l, rtol=LM_GUARD_TOL,
                                    atol=LM_GUARD_TOL)
-                    for i, (_, ex_l) in enumerate(exact))
-        print(f"{name} {layout} (f32, {cfg.n_layers} layers, rf 1.0 vs the "
-              f"exact decode): tokens equal {same}, max logit err {err:.3e} "
-              f"(tol {LM_GUARD_TOL}), largest bucket {worst} / {cap}")
+                    for i, (_, ex_l) in enumerate(ref))
+        print(f"{name} {layout} (f32, {cfg.n_layers} layers, {len(prompts)} "
+              f"x {len(prompts[0])}-token prompts, rf 1.0 vs the {what}): "
+              f"tokens equal {same}, max logit err {err:.3e} (tol "
+              f"{LM_GUARD_TOL}), largest bucket {worst} / {cap}")
         if not (same and close):
-            fail(f"{name} {layout}: rf 1.0 decode differs from the exact "
-                 "decode")
-        out[layout] = {"tokens_equal": same, "max_logit_err": err,
-                       "max_bucket_count": worst, "capacity": cap}
+            fail(f"{name} {layout}: rf 1.0 decode differs from the {what}")
+        out[layout] = {"exact": what, "tokens_equal": same,
+                       "max_logit_err": err, "max_bucket_count": worst,
+                       "capacity": cap}
     return out
 
 
@@ -1925,94 +2027,143 @@ def lm_servable_guard(torch, model_lib, model, cfg) -> dict:
     return {"tokens_and_logits_equal": same, "max_logit_err": err}
 
 
-def lm_small_check(torch):
-    """The smoke qwen3-8b in f32 through DecodeEngine on the card and on the
-    CPU (the plain versions), same weights and LSH draws, both layouts,
-    every refine_frac: tokens equal, logits within LM_CPU_TOL."""
+def lm_small_check(torch, archs=None, devs=("cuda", "cpu")):
+    """The smoke configs of qwen3-8b and of the arch phase's five (or
+    ``archs``) in f32 on the card and on the CPU (the plain versions;
+    ``devs`` names the two), same weights and LSH draws: one ``forward``
+    (whisper with ``frames``, qwen2-vl with a t/h/w grid whose three rows
+    differ), then two 6-token prompts through DecodeEngine in the model's
+    layouts and 6 decode steps at every refine_frac of LM_SWEEP (1.0 alone
+    without aggregated layers): forward logits, tokens and decode logits
+    equal within LM_CPU_TOL."""
+    import numpy as np
+
     from repro_torch.configs import get_config
     from repro_torch.models import model as model_lib
-    from repro_torch.serve.lm.engine import DecodeEngine as engine_cls
+    from repro_torch.serve.lm.engine import DecodeEngine
 
-    base = get_config(LM_ARCH, smoke=True).with_(agg_kv=True,
+    layouts = {LM_ARCH: LM_LAYOUTS,
+               **{row.arch: row.layouts for row in DECODE_MODELS}}
+    if archs is None:
+        archs = (LM_ARCH, *(row.arch for row in DECODE_MODELS
+                            if row.phase == "arch"))
+    for arch in archs:
+        cfg = get_config(arch, smoke=True).with_(agg_kv=True,
                                                  agg_compression=4)
-    prompts = lm_prompts(base.vocab_size, 2, 6, seed=4)
-    for layout in LM_LAYOUTS:
-        cfg = base.with_(agg_layout=layout)
-        results = {}
-        for dev in ("cuda", "cpu"):
+        sweep = LM_SWEEP if n_aggregated(cfg) else (1.0,)
+        prompts = lm_prompts(cfg.vocab_size, 2, 6, seed=4)
+        tokens = lm_prompts(cfg.vocab_size, 2, 10, seed=8)
+        t = np.arange(10)
+        grid = np.ascontiguousarray(np.broadcast_to(
+            np.stack([t, t // 2, t % 3])[:, None], (3, 2, 10)))
+        frames = torch.randn((2, 10, cfg.d_model),
+                             generator=torch.Generator().manual_seed(9))
+        results = []
+        for dev in devs:
             model = model_lib.init_params(
                 cfg, torch.Generator().manual_seed(5), device=dev)
-            lsh = model_lib.draw_lsh(cfg, torch.Generator().manual_seed(6),
-                                     device=dev)
-            engine = engine_cls(model, cfg, max_slots=2, s_max=32, lsh=lsh)
-            prefixes = [engine.prefill(p) for p in prompts]
-            results[dev] = {
-                rf: [t.cpu() for t in lm_generate(torch, engine, prefixes,
-                                                  rf, 6)[:2]]
-                for rf in LM_SWEEP}
-        worst = 0.0
-        for rf in LM_SWEEP:
-            (gt, gl), (wt, wl) = results["cuda"][rf], results["cpu"][rf]
+            extra = {}
+            if cfg.is_encoder_decoder:
+                extra["frames"] = frames.to(dev)
+            if cfg.mrope:
+                extra["mrope_positions"] = torch.as_tensor(grid, device=dev)
+            fwd = model_lib.forward(model, torch.as_tensor(tokens, device=dev),
+                                    cfg, **extra)
+            out = {"forward": (None, fwd.float().cpu())}
+            for layout in layouts[arch]:
+                lsh = model_lib.draw_lsh(cfg, torch.Generator().manual_seed(6),
+                                         device=dev)
+                engine = DecodeEngine(model, cfg.with_(agg_layout=layout),
+                                      max_slots=2, s_max=32, lsh=lsh)
+                prefixes = [engine.prefill(p) for p in prompts]
+                for rf in sweep:
+                    toks, logits, _ = lm_generate(torch, engine, prefixes, rf,
+                                                  6)
+                    out[f"{layout} rf={rf}"] = (toks.cpu(), logits.cpu())
+            results.append(out)
+        worst = {}
+        for key, (gt, gl) in results[0].items():
+            wt, wl = results[1][key]
             err = (gl - wl).abs()
-            worst = max(worst, float(err.max()))
-            if not torch.equal(gt, wt) or bool(
-                    (err > LM_CPU_TOL + LM_CPU_TOL * wl.abs()).any()):
-                fail(f"LM small check {layout} rf={rf}: the card and the "
-                     f"CPU differ (tokens equal {torch.equal(gt, wt)}, max "
-                     f"logit err {float(err.max()):.3e})")
-        print(f"LM small check {layout} (smoke qwen3-8b, cuda vs cpu, every "
-              f"rf): tokens equal, max logit err {worst:.2e}")
+            worst[key] = float(err.max())
+            same = gt is None or torch.equal(gt, wt)
+            if not same or bool((err > LM_CPU_TOL + LM_CPU_TOL * wl.abs())
+                                .any()):
+                fail(f"LM small check {arch} {key}: the card and the CPU "
+                     f"differ (tokens equal {same}, max logit err "
+                     f"{worst[key]:.3e})")
+        print(f"LM small check {arch} (smoke, f32, cuda vs cpu): forward max "
+              f"err {worst.pop('forward'):.2e}; 6 decode steps in "
+              f"{' and '.join(layouts[arch])} at rf {sweep}: tokens equal, "
+              f"max logit err {max(worst.values()):.2e}")
 
 
-def moe_phase(torch, ops, probe, jobs, *, models=None, dev="cuda",
-              prompt_len=MOE_PROMPT, s_max=LM_S_MAX):
-    """The MoE and MLA models through DecodeEngine (``MOE_MODELS``; each at
-    its published widths unless ``models`` gives other configs), then the
-    f32 guard; returns (summary, launch counts summed over the paths)."""
+def decode_phase(torch, ops, probe, jobs, phase, *, models=None,
+                 dev="cuda", prompt_len=None, guard_prompt=None,
+                 s_max=LM_S_MAX):
+    """The ``phase`` rows of DECODE_MODELS through DecodeEngine on the LM
+    path, each at its published widths and the row's depth (or as the
+    config ``models`` gives), each followed by its f32 guard (``prompt_len``
+    may cut the path's prompts, ``guard_prompt`` the guards'); returns
+    (summary, launch counts summed over the paths)."""
     from repro_torch.configs import get_config, param_count
     from repro_torch.models import model as model_lib
     from repro_torch.serve.lm.engine import DecodeEngine
 
     t_phase = time.perf_counter()
     summary, total = {}, {}
-    for arch, n_layers, layouts in MOE_MODELS:
-        cfg = (models or {}).get(arch) or get_config(arch).with_(
-            n_layers=n_layers)
+    for row in DECODE_MODELS:
+        if row.phase != phase:
+            continue
+        t_model = time.perf_counter()
+        base = (models or {}).get(row.arch) or get_config(row.arch)
+        cfg = base if models else base.with_(n_layers=row.n_layers)
         cfg = cfg.with_(agg_kv=True, agg_compression=LM_COMPRESSION)
         t0 = time.perf_counter()
         model = model_lib.init_params(
             cfg, torch.Generator(dev).manual_seed(0), device=dev)
         torch.cuda.synchronize()
         n_params = sum(p.numel() for p in model.parameters())
-        print(f"moe {arch}: {cfg.n_layers} layers ({cfg.first_k_dense} "
-              f"dense), {n_params / 1e9:.3f} B parameters (param_count "
+        kinds = model_lib.block_kinds(cfg)
+        n_agg = n_aggregated(cfg)
+        print(f"{phase} {row.arch}: {cfg.n_layers} layers "
+              f"({ {k: kinds.count(k) for k in dict.fromkeys(kinds)} }, "
+              f"{cfg.first_k_dense} dense FFN, {n_agg} aggregated), "
+              f"{n_params / 1e9:.3f} B parameters (param_count "
               f"{param_count(cfg) / 1e9:.3f} B before vocab padding), "
               f"{cfg.dtype}, drawn in {time.perf_counter() - t0:.1f} s")
-        prompts = lm_prompts(cfg.vocab_size, LM_SLOTS, prompt_len, seed=0)
-        summary[arch] = {"params": n_params}
-        for layout in layouts:
-            summary[arch][layout], counts = lm_path(
+        prompts = lm_prompts(cfg.vocab_size, LM_SLOTS,
+                             prompt_len or row.prompt, seed=0)
+        summary[row.arch] = {"params": n_params, "layers": cfg.n_layers,
+                             "aggregated_layers": n_agg}
+        for layout in row.layouts:
+            summary[row.arch][layout], counts = lm_path(
                 torch, ops, probe, DecodeEngine, model, cfg, layout, prompts,
-                jobs, name=f"moe {arch}", sweep=MOE_SWEEP, steps=MOE_STEPS,
+                jobs, name=f"{phase} {row.arch}",
+                sweep=DECODE_SWEEP if n_agg else (1.0,), steps=DECODE_STEPS,
                 warm=1, dev=dev, s_max=s_max)
             for op, n in counts.items():
                 total[op] = total.get(op, 0) + n
         del model
         gc.collect()
         torch.cuda.empty_cache()
-    guard = ((models or {}).get(MOE_GUARD_ARCH) or get_config(
-        MOE_GUARD_ARCH).with_(n_layers=MOE_GUARD_LAYERS)).with_(
-        dtype="float32", capacity_factor=MOE_NO_DROP, agg_kv=True,
-        agg_compression=LM_COMPRESSION)
-    model = model_lib.init_params(guard, torch.Generator(dev).manual_seed(3),
-                                  device=dev)
-    summary["guard"] = lm_guard(
-        torch, model_lib, DecodeEngine, model, guard,
-        lm_prompts(guard.vocab_size, MOE_GUARD_PROMPTS, MOE_GUARD_PROMPT,
-                   seed=1), MOE_GUARD_NEW,
-        name=f"moe guard {MOE_GUARD_ARCH} (no drops)", dev=dev, s_max=s_max)
-    del model
-    torch.cuda.empty_cache()
+        if row.guard is not None:
+            guard = base.with_(**row.guard, dtype="float32", agg_kv=True,
+                               agg_compression=LM_COMPRESSION)
+            model = model_lib.init_params(
+                guard, torch.Generator(dev).manual_seed(3), device=dev)
+            summary[row.arch]["guard"] = lm_guard(
+                torch, model_lib, DecodeEngine, model, guard,
+                lm_prompts(guard.vocab_size, row.guard_prompts,
+                           (guard_prompt or {}).get(row.arch,
+                                                    row.guard_prompt),
+                           seed=1), DECODE_GUARD_NEW,
+                layouts=row.layouts, exact=row.exact,
+                name=f"{phase} guard {row.arch}", dev=dev, s_max=s_max)
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+        summary[row.arch]["model_s"] = time.perf_counter() - t_model
     summary["phase_s"] = time.perf_counter() - t_phase
     return summary, total
 
@@ -3367,9 +3518,18 @@ def main() -> int:
         probe.calls.setdefault(op, {}).update(calls)
 
     # ---- MoE and MLA decode: deepseek-v2-236b and moonshot-v1-16b-a3b ----
-    moe_summary, counts_moe = moe_phase(torch, ops, lm_probe, lm_jobs)
+    moe_summary, counts_moe = decode_phase(torch, ops, lm_probe, lm_jobs,
+                                           "moe")
     print(f"moe phase card: {smi}; {moe_summary['phase_s']:.1f} s")
     print(json.dumps({"moe": moe_summary, "card": smi}))
+    for op, calls in lm_probe.calls.items():
+        probe.calls.setdefault(op, {}).update(calls)
+
+    # ---- the other five families: zamba2, gemma3, qwen2-vl, whisper, xLSTM
+    arch_summary, counts_arch = decode_phase(torch, ops, lm_probe, lm_jobs,
+                                             "arch")
+    print(f"arch phase card: {smi}; {arch_summary['phase_s']:.1f} s")
+    print(json.dumps({"arch": arch_summary, "card": smi}))
     for op, calls in lm_probe.calls.items():
         probe.calls.setdefault(op, {}).update(calls)
 
@@ -3402,6 +3562,8 @@ def main() -> int:
     counts["distance_topk"] += counts_lm["distance_topk"]
     for op in counts_moe:
         counts[op] += counts_moe[op]
+    for op in counts_arch:
+        counts[op] += counts_arch[op]
     counts["lsh_hash"] = counts_knn["lsh_hash"] + counts_cf["lsh_hash"]
     for op in STORE_KERNELS:
         counts[op] += counts_store[op]

@@ -1,22 +1,27 @@
 """Architecture registry: name -> (full config, smoke config).
 
-Five of the JAX package's ten configs are ported (``src/repro/configs/``):
-the dense GQA models and the MoE / MLA ones.  zamba2-7b, xlstm-350m,
-whisper-tiny, gemma3-1b and qwen2-vl-2b wait for their block kinds.
+All ten of the JAX package's configs (``src/repro/configs/``), each equal
+to its counterpart field by field.
 """
 from __future__ import annotations
 
 from repro_torch.configs import (
-    deepseek_7b, deepseek_v2_236b, moonshot_v1_16b_a3b, qwen2_5_14b, qwen3_8b,
+    deepseek_7b, deepseek_v2_236b, gemma3_1b, moonshot_v1_16b_a3b,
+    qwen2_5_14b, qwen2_vl_2b, qwen3_8b, whisper_tiny, xlstm_350m, zamba2_7b,
 )
 from repro_torch.configs.base import ModelConfig, param_count  # noqa: F401
 
 _MODULES = {
+    "zamba2-7b": zamba2_7b,
     "moonshot-v1-16b-a3b": moonshot_v1_16b_a3b,
     "deepseek-v2-236b": deepseek_v2_236b,
+    "whisper-tiny": whisper_tiny,
+    "xlstm-350m": xlstm_350m,
     "qwen2.5-14b": qwen2_5_14b,
     "deepseek-7b": deepseek_7b,
+    "gemma3-1b": gemma3_1b,
     "qwen3-8b": qwen3_8b,
+    "qwen2-vl-2b": qwen2_vl_2b,
 }
 
 ARCH_NAMES = tuple(_MODULES)

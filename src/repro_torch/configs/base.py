@@ -2,10 +2,8 @@
 model, as ``src/repro/configs/base.py`` defines it (the port keeps its own
 copy and imports nothing of the JAX package).
 
-The fields name every architecture family the JAX package knows; the
-port's model code runs ``attn`` blocks, dense GQA or MLA, with a SwiGLU
-MLP or a routed MoE, and raises on the others (SSM, xLSTM,
-encoder-decoder, sliding-window, M-RoPE).
+The fields name every architecture family the JAX package knows, and the
+port's model code runs each of them.
 """
 from __future__ import annotations
 

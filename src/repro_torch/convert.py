@@ -3,8 +3,11 @@ and a language model's parameters and train state back into the JAX
 package's trees.
 
 The port's parameter names are the JAX package's keys (``attn.w_dq``,
-``moe.router``, ``moe.w_gate`` stacked over the experts, ``moe.shared``...),
-so the dense, MoE and MLA models' leaves map by name alike.
+``moe.router``, ``moe.w_gate`` stacked over the experts, ``moe.shared``,
+``mixer.a_log``, ``cross.wq``...), so every model's block leaves map by
+name alike; the shared-attention block (``shared_attn``) and the encoder
+(``encoder.blocks``, stacked over its layers there, and
+``encoder.final_norm``) map to the JAX package's top-level entries.
 
 JAX's PRNG bits cannot be reproduced in torch, so a comparison of the two
 packages draws once on the JAX side and hands the draws over: LSH
@@ -125,17 +128,20 @@ def store_level0_from_numpy(
 def _layer_trees(tree: dict, cfg, head: str, units: str, tail: str) -> list:
     """The per-layer subtrees of a JAX stack pytree, in stack order: head
     blocks, then each unit's pattern blocks (the unit axis of the stacked
-    ``units`` leaves indexed away), then tail blocks."""
+    ``units`` leaves indexed away), then tail blocks; None where the tree
+    has no entry (a parameter tree's shared-attention slots)."""
     head_kinds, pat, n_units, tail_kinds = model_lib._stack_layout(cfg)
     out = [tree[head][str(i)] for i in range(len(head_kinds))]
     for u in range(n_units):
         for i in range(len(pat)):
-            out.append(_index(tree[units][f"b{i}"], u))
-    out += [tree[tail][str(i)] for i in range(len(tail_kinds))]
+            out.append(_index(tree[units].get(f"b{i}"), u))
+    out += [tree[tail].get(str(i)) for i in range(len(tail_kinds))]
     return out
 
 
 def _index(node, u: int):
+    if node is None:
+        return None
     if isinstance(node, dict):
         return {k: _index(v, u) for k, v in node.items()}
     if isinstance(node, torch.Tensor):
@@ -174,24 +180,26 @@ def lm_cache_lsh_from_numpy(caches: dict, cfg, *,
     (``repro.models.init_caches``, as numpy; each aggregated cache, an
     object or a dict, has ``lsh_a`` [Hkv*dk, H] and ``lsh_b`` [H], with a
     leading unit axis in ``units``)
-    -> the port's list of (a, b) in stack order, for ``init_caches(lsh=)``
-    and ``DecodeEngine(lsh=)``."""
+    -> the port's list in stack order, for ``init_caches(lsh=)`` and
+    ``DecodeEngine(lsh=)``: (a, b) for each layer whose cache is
+    aggregated, None for the others (ring buffers, Mamba2 and xLSTM
+    states; the cross-attention caches are not layers of the stack)."""
     dev = resolve(device)
-    return [(_f32(c["lsh_a"], dev), _f32(c["lsh_b"], dev))
-            for c in _layer_trees(_lsh_only(caches), cfg, "head", "units",
-                                  "tail")]
+    draws = {part: {name: _draws(node) for name, node in caches[part].items()}
+             for part in ("head", "units", "tail")}
+    return [None if c is None else (_f32(c["lsh_a"], dev),
+                                    _f32(c["lsh_b"], dev))
+            for c in _layer_trees(draws, cfg, "head", "units", "tail")]
 
 
-def _lsh_only(node):
-    """A cache pytree with every aggregated cache reduced to a dict of its
-    draws."""
+def _draws(node) -> dict | None:
+    """A layer's cache reduced to a dict of its LSH draws, None unless the
+    cache is aggregated."""
     if isinstance(node, dict) and "lsh_a" in node:
         return {"lsh_a": node["lsh_a"], "lsh_b": node["lsh_b"]}
-    if isinstance(node, dict):
-        return {k: _lsh_only(v) for k, v in node.items()}
     if hasattr(node, "lsh_a"):
         return {"lsh_a": node.lsh_a, "lsh_b": node.lsh_b}
-    raise ValueError(f"not an aggregated cache: {type(node).__name__}")
+    return None
 
 
 # ---------------------------------------------------------------------------
@@ -208,18 +216,23 @@ def lm_tree(named: dict, cfg) -> dict:
     """Tensors keyed by the port's parameter names (``param_tree``, its
     gradients or moments) -> the JAX package's parameter tree of the same
     tensors: ``embed``, ``final_norm``, ``lm_head``, ``head_blocks``,
-    ``units`` (each pattern block's leaves stacked over the units) and
-    ``tail_blocks``."""
+    ``units`` (each pattern block's leaves stacked over the units; no
+    entry for a shared-attention slot), ``tail_blocks``, ``shared_attn``
+    and ``encoder`` (``blocks`` stacked over its layers,
+    ``final_norm``)."""
     head_kinds, pat, n_units, tail_kinds = model_lib._stack_layout(cfg)
     n_blocks = len(head_kinds) + n_units * len(pat) + len(tail_kinds)
     blocks: list[dict] = [{} for _ in range(n_blocks)]
+    encoder: list[dict] = [{} for _ in range(cfg.n_encoder_layers)]
     tree: dict = {}
     for name, t in named.items():
         parts = name.split(".")
         if parts[0] == "blocks":
             _set(blocks[int(parts[1])], parts[2:], t)
+        elif parts[:2] == ["encoder", "blocks"]:
+            _set(encoder[int(parts[2])], parts[3:], t)
         else:
-            tree[name] = t
+            _set(tree, parts, t)
     n_head = len(head_kinds)
 
     def stack(nodes):
@@ -231,26 +244,31 @@ def lm_tree(named: dict, cfg) -> dict:
     tree["units"] = {
         f"b{j}": stack([blocks[n_head + u * len(pat) + j]
                         for u in range(n_units)])
-        for j in range(len(pat))
+        for j, kind in enumerate(pat) if kind != "shared_attn"
     } if n_units else {}
     tail0 = n_head + n_units * len(pat)
     tree["tail_blocks"] = {str(i): blocks[tail0 + i]
-                           for i in range(len(tail_kinds))}
+                           for i, kind in enumerate(tail_kinds)
+                           if kind != "shared_attn"}
+    if cfg.is_encoder_decoder:
+        tree["encoder"]["blocks"] = stack(encoder)
     return tree
 
 
 def lm_decayed(named: dict, cfg) -> dict[str, bool]:
     """Which of the port's parameters (``param_tree``) AdamW decays: the
     JAX package decays each leaf of its own tree with ``ndim >= 2``, and
-    there a pattern block's leaves are stacked over the units, so a unit's
-    norm weight is decayed while a head or tail block's is not."""
+    there a pattern block's leaves are stacked over the units and an
+    encoder block's over the encoder's layers, so their norm weights are
+    decayed while a head, tail or shared block's are not."""
     head_kinds, pat, n_units, _ = model_lib._stack_layout(cfg)
     lo = len(head_kinds)
     hi = lo + n_units * len(pat)
     out = {}
     for name, t in named.items():
         parts = name.split(".")
-        stacked = parts[0] == "blocks" and lo <= int(parts[1]) < hi
+        stacked = (parts[0] == "blocks" and lo <= int(parts[1]) < hi) \
+            or parts[:2] == ["encoder", "blocks"]
         out[name] = t.dim() + stacked >= 2
     return out
 
@@ -285,6 +303,9 @@ def lm_named(tree: dict, cfg) -> dict:
         node = tree
         if parts[0] == "blocks":
             node, parts = blocks[int(parts[1])], parts[2:]
+        elif parts[:2] == ["encoder", "blocks"]:
+            node = _index(tree["encoder"]["blocks"], int(parts[2]))
+            parts = parts[3:]
         for part in parts:
             node = node[part]
         out[name] = node

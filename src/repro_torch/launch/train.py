@@ -26,16 +26,21 @@ from repro_torch.models import model as model_lib
 
 def value_and_grad(model: model_lib.LM, batch: dict, cfg
                    ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
-    """(loss, gradient of every parameter by name) of ``loss_fn``."""
+    """(loss, gradient of every parameter by name) of ``loss_fn``.  A
+    parameter the loss does not read (an encoder block's cross-attention
+    weights) gets a zero gradient, as under ``jax.grad``."""
     params = model_lib.param_tree(model)
     for p in params.values():
         p.requires_grad_(True)
     try:
         loss = model_lib.loss_fn(model, batch, cfg)
-        grads = torch.autograd.grad(loss, list(params.values()))
+        grads = torch.autograd.grad(loss, list(params.values()),
+                                    allow_unused=True)
     finally:
         for p in params.values():
             p.requires_grad_(False)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(params.values(), grads)]
     return loss.detach(), dict(zip(params, grads))
 
 
@@ -85,14 +90,18 @@ def make_train_step(cfg, opt_cfg: optim.AdamWConfig,
 
 def make_prefill_step(cfg):
     def prefill_step(model, batch):
-        return model_lib.prefill(model, batch["tokens"], cfg)
+        return model_lib.prefill(
+            model, batch["tokens"], cfg,
+            mrope_positions=batch.get("mrope_positions"),
+            frames=batch.get("frames"))
     return prefill_step
 
 
 def make_serve_step(cfg):
     def step(model, caches, batch):
-        return model_lib.serve_step(model, caches, batch["tokens"],
-                                    batch["pos"], cfg)
+        return model_lib.serve_step(
+            model, caches, batch["tokens"], batch["pos"], cfg,
+            mrope_positions=batch.get("mrope_positions"))
     return step
 
 

@@ -273,6 +273,9 @@ class BucketMajorKVCache:
         return self.k.shape[2]
 
 
+AGG_CACHES = (AggKVCache, BucketMajorKVCache)
+
+
 def init_bucket_major(
     lsh: tuple[torch.Tensor, torch.Tensor], *, batch: int, s_max: int,
     n_kv: int, dk: int, dv: int | None = None, compression: int,

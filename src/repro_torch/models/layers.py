@@ -1,7 +1,8 @@
-"""Shared transformer layers of the port: norms, linears, RoPE, GQA attention
-over a full sequence (dense, or blockwise with its own backward) and with
-an exact KV cache, and the SwiGLU MLP, as ``src/repro/models/layers.py``
-computes them.
+"""Shared transformer layers of the port: norms, linears, a checkpointed
+scan, RoPE and M-RoPE, GQA attention over a full sequence (dense, or
+blockwise with its own backward) and with an exact KV cache or ring
+buffer, cross-attention, and the SwiGLU and GELU MLPs, as
+``src/repro/models/layers.py`` computes them.
 
 Parameters live in ``nn.Module`` containers whose attribute names are the
 JAX package's dictionary keys (``p.wq`` for ``p["wq"]``); weights keep its
@@ -17,6 +18,7 @@ import math
 import torch
 from torch import nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
           "float16": torch.float16}
@@ -57,6 +59,50 @@ class Init:
     def const(self, shape: tuple, value: float) -> nn.Parameter:
         t = torch.full(shape, value, dtype=self.dtype, device=self.device)
         return nn.Parameter(t, requires_grad=False)
+
+
+def _tree_map(fn, *nodes):
+    """``fn`` over the tensors at the same place in nests of tuples, lists
+    and dicts of one structure."""
+    n0 = nodes[0]
+    if isinstance(n0, (tuple, list)):
+        return type(n0)(_tree_map(fn, *parts) for parts in zip(*nodes))
+    if isinstance(n0, dict):
+        return {k: _tree_map(fn, *(n[k] for n in nodes)) for k in n0}
+    return fn(*nodes)
+
+
+def checkpointed_scan(step, init, xs, *, chunk: int = 128):
+    """``lax.scan`` of ``step(carry, x) -> (carry, y)`` over the leading
+    axis of ``xs`` (a tensor or a nest of tuples / dicts of them), with
+    O(S/chunk + chunk) backward memory: the scan runs in chunks (the chunk
+    halved until it divides S), and under autograd each chunk is
+    recomputed in the backward (``torch.utils.checkpoint``), so only the
+    carries at chunk borders are kept.  Returns (carry, ys stacked on a
+    leading S axis)."""
+    lengths = []
+    _tree_map(lambda x: lengths.append(x.shape[0]), xs)
+    s = lengths[0]
+    c = min(chunk, s)
+    while s % c:
+        c //= 2
+
+    def run(carry, xc):
+        ys = []
+        for t in range(c):
+            carry, y = step(carry, _tree_map(lambda x: x[t], xc))
+            ys.append(y)
+        return carry, _tree_map(lambda *ts: torch.stack(ts), *ys)
+
+    carry, chunks = init, []
+    for lo in range(0, s, c):
+        xc = _tree_map(lambda x: x[lo:lo + c], xs)
+        if torch.is_grad_enabled():
+            carry, ys = checkpoint(run, carry, xc, use_reentrant=False)
+        else:
+            carry, ys = run(carry, xc)
+        chunks.append(ys)
+    return carry, _tree_map(lambda *ts: torch.cat(ts), *chunks)
 
 
 def dense_init(init: Init, d_in: int, d_out: int,
@@ -110,6 +156,43 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float, *,
     return out.to(x.dtype)
 
 
+def mrope_sections(head_dim: int) -> tuple[int, int, int]:
+    """Qwen2-VL's split of the head_dim/2 frequency slots into (temporal,
+    height, width) sections: 1/4, 3/8, 3/8 (16/24/24 of a 128 head)."""
+    half = head_dim // 2
+    s1 = half // 4
+    s2 = (half - s1) // 2
+    return s1, s2, half - s1 - s2
+
+
+def mrope_rotation(positions: torch.Tensor, head_dim: int, theta: float,
+                   sections: tuple | None = None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(cos, sin) of the multimodal rotary angles, [B, S, 1, hd/2] f32:
+    frequency slot j of section i turns by the position of grid row i.
+    positions: [3, B, S] int (t/h/w; equal rows, as for pure text, give
+    standard RoPE)."""
+    half = head_dim // 2
+    sections = mrope_sections(head_dim) if sections is None else sections
+    if sum(sections) != half:
+        raise ValueError(f"sections {sections} do not sum to {half}")
+    freqs = rope_freqs(head_dim, theta, positions.device)
+    sect = torch.cat([torch.full((n,), i, dtype=torch.long,
+                                 device=positions.device)
+                      for i, n in enumerate(sections)])       # [half]
+    pos = positions.movedim(0, -1).float()                   # [B, S, 3]
+    angles = (pos[..., sect] * freqs)[..., None, :]          # [B,S,1,half]
+    return torch.cos(angles), torch.sin(angles)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections: tuple | None = None) -> torch.Tensor:
+    """Multimodal RoPE (Qwen2-VL).  x: [B, S, H, hd]; positions: [3, B, S]
+    int."""
+    return apply_rope(x, positions, theta, rotation=mrope_rotation(
+        positions, x.shape[-1], theta, sections))
+
+
 # ---------------------------------------------------------------------------
 # GQA attention
 # ---------------------------------------------------------------------------
@@ -139,11 +222,12 @@ def attention_init(init: Init, cfg) -> Attention:
 
 
 def _project_qkv(p: Attention, x: torch.Tensor, cfg, positions: torch.Tensor,
-                 rotation: tuple | None = None):
-    """x [B,S,d] -> q [B,S,H,hd], k, v [B,S,Hkv,hd] (RoPE applied, with
-    ``rotation`` from ``rope_rotation`` when given)."""
-    if cfg.mrope:
-        raise NotImplementedError("M-RoPE is not ported yet")
+                 rotation: tuple | None = None, mrope_positions=None):
+    """x [B,S,d] -> q [B,S,H,hd], k, v [B,S,Hkv,hd], rotated: by M-RoPE
+    when the config has it and ``mrope_positions`` [3,B,S] are given (the
+    JAX package falls back to standard RoPE without them), else by RoPE
+    when the config uses it; ``rotation`` is the (cos, sin) to rotate by
+    when the caller has it (a decode step's layers share one)."""
     b, s, _ = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = x @ p.wq
@@ -157,7 +241,12 @@ def _project_qkv(p: Attention, x: torch.Tensor, cfg, positions: torch.Tensor,
     if cfg.qk_norm:
         q = rmsnorm(q, p.q_norm, cfg.norm_eps)
         k = rmsnorm(k, p.k_norm, cfg.norm_eps)
-    if cfg.use_rope:
+    mrope = cfg.mrope and mrope_positions is not None
+    if mrope or cfg.use_rope:
+        if rotation is None:
+            rotation = (mrope_rotation(mrope_positions, hd, cfg.rope_theta)
+                        if mrope else rope_rotation(positions, hd,
+                                                    cfg.rope_theta))
         # one rotation of the query and key heads together (elementwise:
         # the same values as rotating each)
         qk = apply_rope(torch.cat([q, k], dim=2), positions, cfg.rope_theta,
@@ -170,17 +259,21 @@ def attention_decode(
     p: Attention, x: torch.Tensor, cfg, *, cache_k: torch.Tensor,
     cache_v: torch.Tensor, pos: torch.Tensor,
     write_pos: torch.Tensor | None = None, rotation: tuple | None = None,
+    mrope_positions: torch.Tensor | None = None,
 ):
     """One decode step with exact attention.  x [B,1,d]; cache_k/v
-    [B,S,Hkv,hd]; pos [B].  The new key and value are written into the
-    caches in place at ``write_pos`` (default ``pos``); returns (out
-    [B,1,d], cache_k, cache_v)."""
+    [B,S,Hkv,hd]; pos [B]; ``mrope_positions`` [3,B,1].  The new key and
+    value are written into the caches in place at ``write_pos`` (default
+    ``pos``; a ring buffer passes ``pos % ring``, and once ``pos`` passes
+    the ring every slot is valid); returns (out [B,1,d], cache_k,
+    cache_v)."""
     b = x.shape[0]
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     s_max = cache_k.shape[1]
     if write_pos is None:
         write_pos = pos
-    q, k_new, v_new = _project_qkv(p, x, cfg, pos[:, None], rotation)
+    q, k_new, v_new = _project_qkv(p, x, cfg, pos[:, None], rotation,
+                                   mrope_positions)
     rows = torch.arange(b, device=x.device)
     slot = write_pos.long().clamp(0, s_max - 1)
     cache_k[rows, slot] = k_new[:, 0].to(cache_k.dtype)
@@ -365,11 +458,13 @@ def sliding_window_mask(s: int, window: int, device=None) -> torch.Tensor:
 
 def attention(p: Attention, x: torch.Tensor, cfg, *, positions: torch.Tensor,
               causal: bool = True, window: int | None = None,
+              mrope_positions: torch.Tensor | None = None,
               segment_mask: torch.Tensor | None = None) -> torch.Tensor:
     """Full-sequence attention (training / prefill): the blockwise path
     from ``_BLOCKWISE_THRESHOLD`` tokens on, the dense one below."""
     b, s, _ = x.shape
-    q, k, v = _project_qkv(p, x, cfg, positions)
+    q, k, v = _project_qkv(p, x, cfg, positions,
+                           mrope_positions=mrope_positions)
     scale = 1.0 / math.sqrt(cfg.head_dim)
     if s >= _BLOCKWISE_THRESHOLD and segment_mask is None:
         hkv = cfg.n_kv_heads
@@ -389,8 +484,42 @@ def attention(p: Attention, x: torch.Tensor, cfg, *, positions: torch.Tensor,
     return out.reshape(b, s, -1) @ p.wo
 
 
+class CrossAttention(nn.Module):
+    """Decoder-to-encoder attention weights: wq, wk, wv [d, H*hd], wo."""
+
+    def __init__(self, init: Init, cfg):
+        super().__init__()
+        d, hd = cfg.d_model, cfg.n_heads * cfg.head_dim
+        self.wq = dense_init(init, d, hd)
+        self.wk = dense_init(init, d, hd)
+        self.wv = dense_init(init, d, hd)
+        self.wo = dense_init(init, hd, d)
+
+
+def cross_attention_init(init: Init, cfg) -> CrossAttention:
+    return CrossAttention(init, cfg)
+
+
+def cross_attention(p: CrossAttention, x: torch.Tensor, memory: torch.Tensor,
+                    cfg) -> torch.Tensor:
+    """Decoder-to-encoder attention (no RoPE, no mask).  x [B,S,d]; memory
+    [B,T,d]."""
+    b, s, _ = x.shape
+    t = memory.shape[1]
+    h, hd = cfg.n_heads, cfg.head_dim
+    q = (x @ p.wq).reshape(b, s, h, hd)
+    k = (memory @ p.wk).reshape(b, t, h, hd)
+    v = (memory @ p.wv).reshape(b, t, h, hd)
+    if max(s, t) >= _BLOCKWISE_THRESHOLD:
+        out = blockwise_sdpa(q.reshape(b, s, h, 1, hd), k, v,
+                             scale=1.0 / math.sqrt(hd), causal=False)
+    else:
+        out = _sdpa(q, k, v, None, scale=1.0 / math.sqrt(hd))
+    return out.reshape(b, s, -1) @ p.wo
+
+
 # ---------------------------------------------------------------------------
-# MLP
+# MLPs
 # ---------------------------------------------------------------------------
 
 class MLP(nn.Module):
@@ -410,3 +539,22 @@ def mlp_init(init: Init, d_model: int, d_ff: int) -> MLP:
 def mlp(p: MLP, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU feed-forward."""
     return (F.silu(x @ p.w_gate) * (x @ p.w_up)) @ p.w_down
+
+
+class GeluMLP(nn.Module):
+    """Plain GELU feed-forward weights (whisper): w_up [d, ff], w_down."""
+
+    def __init__(self, init: Init, d_model: int, d_ff: int):
+        super().__init__()
+        self.w_up = dense_init(init, d_model, d_ff)
+        self.w_down = dense_init(init, d_ff, d_model)
+
+
+def gelu_mlp_init(init: Init, d_model: int, d_ff: int) -> GeluMLP:
+    return GeluMLP(init, d_model, d_ff)
+
+
+def gelu_mlp(p: GeluMLP, x: torch.Tensor) -> torch.Tensor:
+    """GELU feed-forward; ``jax.nn.gelu``'s default is the tanh
+    approximation."""
+    return F.gelu(x @ p.w_up, approximate="tanh") @ p.w_down

@@ -3,13 +3,27 @@
 ``src/repro/models/model.py`` defines them.
 
 The parameters are an ``LM`` module: the embedding, the final norm, the
-LM head and a ``ModuleList`` of blocks in stack order (head blocks, the
-repeated pattern units, tail blocks); the JAX package's ``lax.scan`` over
-stacked units becomes a loop over that list.  The decode caches are a list
-in the same order.  ``param_tree`` names the parameters for the optimizer
-and the checkpointer; ``convert`` maps that to the JAX package's tree.
+LM head, the ``shared_attn`` block (zamba2: one weight set that every
+``shared_attn`` slot of the stack applies), a ``ModuleList`` of blocks in
+stack order (head blocks, the repeated pattern units, tail blocks; each
+``shared_attn`` slot holds the one shared module) and, for an
+encoder-decoder config, the ``encoder`` (its blocks and final norm).  The
+JAX package's ``lax.scan`` over stacked units becomes a loop over the
+list.
+
+The decode caches are a list in the same order, one a block (a shared
+block has a cache of its own at each slot); an encoder-decoder config's
+entries are dicts ``{"self": the block's cache, "cross": (K, V)}``, the
+cross-attention's zero-initialised memory caches, as the JAX package's
+``init_caches`` makes them (nothing there fills them from the encoder).
+
+``param_tree`` names the parameters for the optimizer and the
+checkpointer, the shared block once, as ``shared_attn.*`` (its gradient
+sums over its slots); ``convert`` maps that to the JAX package's tree.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 from torch import nn
@@ -50,11 +64,37 @@ def block_kinds(cfg) -> list[str]:
     return [*head, *(list(pat) * n_units), *tail]
 
 
+def _sinusoidal(positions: torch.Tensor, d: int,
+                dtype: torch.dtype) -> torch.Tensor:
+    """Whisper-style sinusoidal position embedding, computed in float32 and
+    cast to ``dtype``: positions [B,S] -> [B,S,d]."""
+    half = d // 2
+    freqs = torch.exp(-math.log(10000.0) * torch.arange(
+        half, dtype=torch.float32, device=positions.device) / half)
+    ang = positions[..., None].float() * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
+
+
+class Encoder(nn.Module):
+    """Whisper's encoder weights: ``blocks`` (``attn`` blocks, with the
+    cross-attention weights that every block of an encoder-decoder config
+    carries and the encoder never reads) and ``final_norm``."""
+
+    def __init__(self, init: layers.Init, cfg):
+        super().__init__()
+        self.blocks = nn.ModuleList(
+            transformer.block_init(init, cfg, "attn")
+            for _ in range(cfg.n_encoder_layers))
+        self.final_norm = layers.rmsnorm_init(init, cfg.d_model)
+
+
 class LM(nn.Module):
-    """Decoder-only language model weights: ``embed`` [V_pad, d],
-    ``final_norm`` [d], ``lm_head`` [d, V_pad] (unless tied) and
-    ``blocks`` (the first ``cfg.first_k_dense`` are head blocks, with a
-    dense MLP in an MoE config)."""
+    """Language model weights: ``embed`` [V_pad, d], ``final_norm`` [d],
+    ``lm_head`` [d, V_pad] (unless tied), ``shared_attn`` (where the
+    pattern has shared-attention slots; registered before ``blocks``, so
+    ``named_parameters`` names it there), ``blocks`` (the first
+    ``cfg.first_k_dense`` are head blocks, with a dense MLP in an MoE
+    config) and ``encoder`` (encoder-decoder configs)."""
 
     def __init__(self, init: layers.Init, cfg):
         super().__init__()
@@ -64,10 +104,16 @@ class LM(nn.Module):
         self.final_norm = layers.rmsnorm_init(init, cfg.d_model)
         if not cfg.tie_embeddings:
             self.lm_head = layers.dense_init(init, cfg.d_model, vpad)
+        if "shared_attn" in self.kinds:
+            self.shared_attn = transformer.block_init(init, cfg,
+                                                      "shared_attn")
         n_head = cfg.first_k_dense
         self.blocks = nn.ModuleList(
-            transformer.block_init(init, cfg, kind, is_head=i < n_head)
+            self.shared_attn if kind == "shared_attn"
+            else transformer.block_init(init, cfg, kind, is_head=i < n_head)
             for i, kind in enumerate(self.kinds))
+        if cfg.is_encoder_decoder:
+            self.encoder = Encoder(init, cfg)
 
 
 def init_params(cfg, generator: torch.Generator, *,
@@ -97,21 +143,46 @@ def load_param_tree(model: LM, params: dict[str, torch.Tensor]) -> None:
         p.data = t.detach()
 
 
+def _encode(model: LM, frames: torch.Tensor, cfg) -> torch.Tensor:
+    """Whisper's encoder over stub frame embeddings [B, S_enc, d]:
+    sinusoidal positions, non-causal blocks, the final norm."""
+    bsz, s, _ = frames.shape
+    pos = torch.arange(s, device=frames.device)[None].expand(bsz, s)
+    x = frames + _sinusoidal(pos, cfg.d_model, frames.dtype)
+    for blk in model.encoder.blocks:
+        x = transformer.block_apply(blk, x, cfg, "attn", positions=pos,
+                                    causal=False)
+    return layers.rmsnorm(x, model.encoder.final_norm, cfg.norm_eps)
+
+
 def forward(model: LM, tokens: torch.Tensor, cfg, *,
+            mrope_positions: torch.Tensor | None = None,
+            frames: torch.Tensor | None = None,
             remat: bool = False) -> torch.Tensor:
-    """Logits [B, S, V_pad] over the full sequence.  tokens: [B, S] int.
-    With ``remat`` each block's activations are recomputed in the backward
-    (``jax.checkpoint`` in the JAX package)."""
+    """Logits [B, S, V_pad] over the full sequence.  tokens: [B, S] int;
+    ``mrope_positions`` [3, B, S] (M-RoPE configs; without them RoPE is
+    the standard one); ``frames`` [B, S_enc, d] the encoder's input
+    (encoder-decoder configs).  With ``remat`` each block's activations
+    are recomputed in the backward (``jax.checkpoint`` in the JAX
+    package)."""
     bsz, s = tokens.shape
     x = model.embed[tokens.long()].to(layers.torch_dtype(cfg.dtype))
     positions = torch.arange(s, device=tokens.device)[None].expand(bsz, s)
+    memory = None
+    if cfg.is_encoder_decoder:
+        if frames is None:
+            raise ValueError(f"{cfg.name}: an encoder-decoder forward needs "
+                             "frames")
+        x = x + _sinusoidal(positions, cfg.d_model, x.dtype)
+        memory = _encode(model, frames, cfg)
+    extra = {"positions": positions, "mrope_positions": mrope_positions,
+             "memory": memory}
     for blk, kind in zip(model.blocks, model.kinds):
         if remat:
             x = checkpoint(transformer.block_apply, blk, x, cfg, kind,
-                           positions=positions, use_reentrant=False)
+                           use_reentrant=False, **extra)
         else:
-            x = transformer.block_apply(blk, x, cfg, kind,
-                                        positions=positions)
+            x = transformer.block_apply(blk, x, cfg, kind, **extra)
     x = layers.rmsnorm(x, model.final_norm, cfg.norm_eps)
     head = model.embed.T if cfg.tie_embeddings else model.lm_head
     return _mask_pad_logits(x @ head, cfg)
@@ -119,9 +190,11 @@ def forward(model: LM, tokens: torch.Tensor, cfg, *,
 
 def loss_fn(model: LM, batch: dict, cfg, *, remat: bool = True
             ) -> torch.Tensor:
-    """Next-token cross-entropy.  batch: tokens [B,S], labels [B,S] and an
-    optional loss_mask [B,S]."""
-    logits = forward(model, batch["tokens"], cfg, remat=remat)
+    """Next-token cross-entropy.  batch: tokens [B,S], labels [B,S] and
+    optional loss_mask [B,S], mrope_positions [3,B,S] and frames."""
+    logits = forward(model, batch["tokens"], cfg,
+                     mrope_positions=batch.get("mrope_positions"),
+                     frames=batch.get("frames"), remat=remat)
     labels = batch["labels"].long()
     lse = torch.logsumexp(logits.float(), dim=-1)                # [B,S]
     # The JAX package picks the label's logit by a one-hot contraction with
@@ -135,53 +208,91 @@ def loss_fn(model: LM, batch: dict, cfg, *, remat: bool = True
     return -(ll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
 
 
-def prefill(model: LM, tokens: torch.Tensor, cfg) -> torch.Tensor:
+def prefill(model: LM, tokens: torch.Tensor, cfg, *,
+            mrope_positions: torch.Tensor | None = None,
+            frames: torch.Tensor | None = None) -> torch.Tensor:
     """Inference prefill: the last position's logits [B, V_pad]."""
-    return forward(model, tokens, cfg, remat=False)[:, -1]
+    return forward(model, tokens, cfg, mrope_positions=mrope_positions,
+                   frames=frames, remat=False)[:, -1]
 
 
 def draw_lsh(cfg, generator: torch.Generator, *,
              device: str | torch.device = "cuda") -> list:
-    """Every attention layer's LSH draws (a, b) on ``device``, in stack
-    order, drawn from ``generator`` on its own device (over the latent
+    """The LSH draws (a, b) on ``device`` of every layer whose cache can be
+    aggregated (``transformer.aggregatable``), in stack order, None for the
+    others; drawn from ``generator`` on its own device (over the latent
     keys for MLA)."""
     dev = resolve(device)
     n_kv, dk, _ = transformer.cache_dims(cfg)
     return [tuple(t.to(dev) for t in aggregated_kv.draw_lsh(
                 generator, n_kv=n_kv, dk=dk, device=generator.device))
-            for _ in block_kinds(cfg)]
+            if transformer.aggregatable(cfg, kind) else None
+            for kind in block_kinds(cfg)]
 
 
 def init_caches(cfg, *, batch: int, s_max: int, lsh: list | None = None,
                 device: str | torch.device = "cuda") -> list:
-    """Empty decode caches on ``device``, one per block in stack order.
-    With ``cfg.agg_kv`` each layer takes its draws from ``lsh``
-    (``draw_lsh``)."""
+    """Empty decode caches on ``device``, one per block in stack order
+    (the module docstring gives an encoder-decoder config's).  With
+    ``cfg.agg_kv`` each aggregated layer takes its draws from ``lsh``
+    (``draw_lsh``: an entry a block)."""
     dev = resolve(device)
     kinds = block_kinds(cfg)
-    if cfg.agg_kv and (lsh is None or len(lsh) != len(kinds)):
-        raise ValueError("aggregated caches need one (a, b) LSH draw a layer")
+    agg = [transformer.uses_agg(cfg, kind) for kind in kinds]
+    if any(agg) and (lsh is None or len(lsh) != len(kinds) or any(
+            a and lsh[i] is None for i, a in enumerate(agg))):
+        raise ValueError("aggregated caches need one (a, b) LSH draw an "
+                         "aggregated layer")
     dtype = layers.torch_dtype(cfg.dtype)
-    return [
+    caches = [
         transformer.init_block_cache(
             cfg, kind, batch=batch, s_max=s_max, dtype=dtype, device=dev,
-            lsh=tuple(t.to(dev) for t in lsh[i]) if cfg.agg_kv else None)
+            lsh=tuple(t.to(dev) for t in lsh[i]) if agg[i] else None)
         for i, kind in enumerate(kinds)
     ]
+    if cfg.is_encoder_decoder:
+        shape = (batch, s_max, cfg.n_heads, cfg.head_dim)
+        caches = [{"self": c,
+                   "cross": (torch.zeros(shape, dtype=dtype, device=dev),
+                             torch.zeros(shape, dtype=dtype, device=dev))}
+                  for c in caches]
+    return caches
+
+
+def aggregated_caches(caches) -> list:
+    """The aggregated caches among a model's decode caches (any nesting),
+    in stack order."""
+    if isinstance(caches, aggregated_kv.AGG_CACHES):
+        return [caches]
+    if isinstance(caches, dict):
+        caches = list(caches.values())
+    if isinstance(caches, (list, tuple)):
+        return [c for node in caches for c in aggregated_caches(node)]
+    return []
 
 
 def serve_step(model: LM, caches: list, tokens: torch.Tensor,
-               pos: torch.Tensor, cfg) -> tuple[torch.Tensor, list]:
-    """Decode one token.  tokens [B,1] int; pos [B] int32.  The caches are
-    updated in place; the RoPE angles are computed once for every layer.
-    Returns (logits [B, V_pad] in the model dtype, caches).
+               pos: torch.Tensor, cfg, *,
+               mrope_positions: torch.Tensor | None = None
+               ) -> tuple[torch.Tensor, list]:
+    """Decode one token.  tokens [B,1] int; pos [B] int32;
+    ``mrope_positions`` [3,B,1] (the exact attention path of an M-RoPE
+    config rotates by them).  The caches are updated in place; the RoPE
+    angles are computed once for every layer.  Returns (logits [B, V_pad]
+    in the model dtype, caches).
     """
     x = model.embed[tokens.long()].to(layers.torch_dtype(cfg.dtype))
+    if cfg.is_encoder_decoder:
+        x = x + _sinusoidal(pos[:, None], cfg.d_model, x.dtype)
     rotation = (layers.rope_rotation(pos[:, None], transformer.rope_dim(cfg),
                                      cfg.rope_theta) if cfg.use_rope else None)
     for blk, kind, cache in zip(model.blocks, model.kinds, caches):
-        x, _ = transformer.block_decode(blk, x, cfg, kind, cache, pos,
-                                        rotation)
+        memory_kv = None
+        if cfg.is_encoder_decoder:
+            cache, memory_kv = cache["self"], cache["cross"]
+        x, _ = transformer.block_decode(
+            blk, x, cfg, kind, cache, pos, rotation,
+            mrope_positions=mrope_positions, memory_kv=memory_kv)
     x = layers.rmsnorm(x, model.final_norm, cfg.norm_eps)
     head = model.embed.T if cfg.tie_embeddings else model.lm_head
     return _mask_pad_logits(x[:, 0] @ head, cfg), caches

@@ -3,7 +3,9 @@ over the paper's two-stage attention, as
 ``src/repro/serve/lm/engine.py:DecodeEngine`` serves it.
 
 ``DecodeEngine`` owns one fixed ``[max_slots]`` decode batch of per-layer
-``AggKVCache`` / ``BucketMajorKVCache`` state and serves three verbs:
+decode state (``AggKVCache`` / ``BucketMajorKVCache`` for the aggregated
+attention layers; ring buffers, Mamba2 and xLSTM states and cross-attention
+memory for the other block kinds) and serves three verbs:
 
   * ``prefill(tokens)``: run the prompt through the model token by token
     (batch 1, ``serve_step``) at ``refine_frac=1.0``: prefill is exact, the
@@ -34,15 +36,10 @@ import torch
 
 from repro_torch.models import layers
 from repro_torch.models import model as model_lib
-from repro_torch.models.aggregated_kv import (
-    AggKVCache, BucketMajorKVCache, refine_count,
-)
+from repro_torch.models.aggregated_kv import refine_count
 from repro_torch.obs.metrics import MetricsRegistry, default_registry
 from repro_torch.obs.trace import current_tracer
 from repro_torch.serve.lm.sharded import BucketShardPlan
-
-_AGG_CACHES = (AggKVCache, BucketMajorKVCache)
-
 
 @dataclasses.dataclass(frozen=True)
 class Prefix:
@@ -59,21 +56,33 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _copy_into_slot(state, prefix, slot: int) -> None:
-    """Copy a batch-1 cache into ``slot`` of the engine's cache, field by
-    field: batch-leading fields at ``slot``, fields of the same shape (the
-    shared LSH draws) whole."""
-    for f in dataclasses.fields(state):
-        ds, pf = getattr(state, f.name), getattr(prefix, f.name)
-        if ds is pf:
-            continue
-        if ds.shape == pf.shape:
-            ds.copy_(pf)
-        elif pf.shape[0] == 1 and ds.shape[1:] == pf.shape[1:]:
-            ds[slot].copy_(pf[0])
-        else:
-            raise ValueError(f"cannot place prefix field {f.name} "
-                             f"{tuple(pf.shape)} into {tuple(ds.shape)}")
+def _copy_into_slot(state, prefix, slot: int, name: str = "cache") -> None:
+    """Copy a batch-1 cache into ``slot`` of the engine's cache, leaf by
+    leaf, as the JAX package's ``_insert_jit`` places them by shape:
+    batch-leading leaves at ``slot``, leaves of the same shape (the shared
+    LSH draws) whole.  A cache is an aggregated cache's dataclass, a dict
+    (exact or ring-buffer K / V, Mamba2's conv windows and state, an
+    encoder-decoder block's self and cross caches) or a tuple (the conv
+    windows, an xLSTM state, the cross K / V) of such, down to tensors."""
+    if dataclasses.is_dataclass(state):
+        for f in dataclasses.fields(state):
+            _copy_into_slot(getattr(state, f.name), getattr(prefix, f.name),
+                            slot, f"{name}.{f.name}")
+    elif isinstance(state, dict):
+        for key, ds in state.items():
+            _copy_into_slot(ds, prefix[key], slot, f"{name}.{key}")
+    elif isinstance(state, (tuple, list)):
+        for i, (ds, pf) in enumerate(zip(state, prefix)):
+            _copy_into_slot(ds, pf, slot, f"{name}[{i}]")
+    elif state is prefix:
+        return
+    elif state.shape == prefix.shape:
+        state.copy_(prefix)
+    elif prefix.shape[0] == 1 and state.shape[1:] == prefix.shape[1:]:
+        state[slot].copy_(prefix[0])
+    else:
+        raise ValueError(f"cannot place prefix leaf {name} "
+                         f"{tuple(prefix.shape)} into {tuple(state.shape)}")
 
 
 class DecodeEngine:
@@ -181,9 +190,8 @@ class DecodeEngine:
     def _apply_dead_mask(self, caches: list) -> None:
         if not self._dead:
             return
-        for c in caches:
-            if isinstance(c, _AGG_CACHES):
-                c.counts.masked_fill_(~self._keep, 0)
+        for c in model_lib.aggregated_caches(caches):
+            c.counts.masked_fill_(~self._keep, 0)
 
     # ------------------------------------------------------------------
     # prefill
@@ -220,8 +228,7 @@ class DecodeEngine:
             raise ValueError(f"slot {slot} out of range")
         if self._live[slot]:
             raise ValueError(f"slot {slot} is live; free() it first")
-        for state, pf in zip(self.state, prefix.caches):
-            _copy_into_slot(state, pf, slot)
+        _copy_into_slot(self.state, prefix.caches, slot)
         self._apply_dead_mask(self.state)
         self.pos[slot] = prefix.length
         self._pos_host[slot] = prefix.length

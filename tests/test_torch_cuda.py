@@ -762,6 +762,65 @@ def test_cuda_decode_attention_refuses_what_it_does_not_take(cuda):
                                         scale=scale)
 
 
+# the arch phase's head shapes (Hkv, G, dk): zamba2-7b's shared attention,
+# gemma3-1b's MQA, qwen2-vl-2b's GQA, whisper-tiny's MHA
+ARCH_HEADS = [(32, 1, 112), (1, 4, 256), (2, 6, 128), (6, 1, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", CACHE_DTYPES)
+@pytest.mark.parametrize("hkv,g,dk", ARCH_HEADS)
+def test_cuda_decode_kernels_at_the_arch_head_shapes(cuda, dtype, hkv, g,
+                                                     dk):
+    """Both decode-attention kernels and the selection at the other five
+    families' head shapes, on the LM path's cache (4 slots, 64 buckets of
+    32 slots over 1024 tokens; rf 0.25 and 1.0, and the batch-1 prefill),
+    against their plain versions; the same bits on a second run."""
+    scale = 1.0 / np.sqrt(dk)
+    for b, r in ((4, 16), (4, 64), (1, 64)):
+        args = _agg_refine_case(cuda, dtype, b, 64, 32, hkv, g, dk, dk, r,
+                                hkv + g + dk + r)
+        got = ops.agg_refine_attention(*args, scale=scale)
+        want = ref.agg_refine_attention(*args, scale=scale)
+        for gt, w, name in zip(got, want, ("m", "l", "acc")):
+            assert_close(gt, w, rtol=ATTN_TOL, atol=ATTN_TOL,
+                         err_msg=f"agg_refine {name} b={b} r={r}")
+        for gt, a in zip(got, ops.agg_refine_attention(*args, scale=scale)):
+            assert torch.equal(gt, a)
+    for b, valid in ((4, [1000, 64, 1024, 500]), (1, [64])):
+        case = _agg_attention_case(cuda, dtype, b, 1024, 64, hkv * g, hkv,
+                                   dk, dk, dk + b)
+        valid_len = th(np.asarray(valid, np.int32)).to(cuda)
+        got = ops.aggregated_attention_decode(*case, scale=scale,
+                                              valid_len=valid_len)
+        assert_close(got, ref.aggregated_attention_decode(
+            *case, scale=scale, valid_len=valid_len), rtol=ATTN_TOL,
+            atol=ATTN_TOL)
+        assert torch.equal(got, ops.aggregated_attention_decode(
+            *case, scale=scale, valid_len=valid_len))
+    # the selection: the pooled query over the centroids of this dtype's
+    # keys (f32 means), 64 buckets, some empty
+    x = rng(dk + g)
+    for b, k in ((4, 16), (4, 64), (1, 64)):
+        q = th(normal(x, b, 1, hkv * dk)).to(cuda)
+        cents = th(normal(x, b, 64, hkv * dk)).to(cuda, dtype).float()
+        labels = torch.arange(64, dtype=torch.int32, device=cuda)
+        valid = th(x.random((b, 64)) < 0.8).to(cuda)
+        before = distance_topk_cuda.launches
+        got_d, got_l = ops.distance_topk(q, cents, labels, valid, k=k,
+                                         metric="dot")
+        assert distance_topk_cuda.launches == before + 1
+        want_d, want_l = ref.distance_topk(q, cents, labels, valid, k=k,
+                                           metric="dot")
+        next_d = ref.distance_topk(q, cents, labels, valid, k=k + 1,
+                                   metric="dot")[0][..., k]
+        assert_topk_match(got_d.reshape(b, k), got_l.reshape(b, k),
+                          want_d.reshape(b, k), want_l.reshape(b, k),
+                          next_d.reshape(b))
+        again = ops.distance_topk(q, cents, labels, valid, k=k, metric="dot")
+        assert torch.equal(got_d, again[0]) and torch.equal(got_l, again[1])
+
+
 # ---------------------------------------------------------------------------
 # the aggregate store on the card: merges, ingest and snapshots give the
 # same bits on every run (no float index_add_ or scatter_add_ on the path)

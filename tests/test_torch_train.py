@@ -167,9 +167,10 @@ def test_loss_and_gradients_parity(masked):
     if masked:
         batch["loss_mask"] = (rng(15).random((2, 16)) < 0.7).astype(
             np.float32)
-    jloss, jgrads = jax.value_and_grad(jmodel.loss_fn)(
+    jloss, jgrads = jax.jit(jax.value_and_grad(
+        lambda p, b: jmodel.loss_fn(p, b, jcfg)))(
         jax.tree_util.tree_map(jnp.asarray, tree),
-        {k: jnp.asarray(v) for k, v in batch.items()}, jcfg)
+        {k: jnp.asarray(v) for k, v in batch.items()})
     loss, grads = train.value_and_grad(
         model, {k: th(v) for k, v in batch.items()}, cfg)
     assert abs(float(loss) - float(jloss)) <= LOSS_TOL
@@ -221,21 +222,38 @@ def test_decode_matches_forward():
     assert rel < 1e-4, rel
 
 
-def test_block_apply_refuses_unported_kinds():
-    from repro_torch.models import transformer
-
-    _, model, cfg, _ = _ref_model()
-    x = torch.zeros(1, 4, cfg.d_model)
-    pos = torch.zeros(1, 4, dtype=torch.int64)
-    # MoE and MLA blocks are ported; these kinds are not
-    for bad in (cfg.with_(sliding_window=8),
-                cfg.with_(is_encoder_decoder=True), cfg.with_(mrope=True)):
-        with pytest.raises(NotImplementedError):
-            transformer.block_apply(model.blocks[0], x, bad, "attn",
-                                    positions=pos)
-    with pytest.raises(NotImplementedError):
-        transformer.block_apply(model.blocks[0], x, cfg, "mamba",
-                                positions=pos)
+@pytest.mark.parametrize("cfg_name", ["gemma3-1b", "whisper-tiny",
+                                      "qwen2-vl-2b", "zamba2-7b",
+                                      "xlstm-350m"])
+def test_loss_and_grads_of_every_block_kind_match_reference(cfg_name):
+    """The loss and every gradient leaf of the sliding-window, encoder-
+    decoder (with frames), M-RoPE (with a grid whose rows differ), Mamba2
+    with shared attention and xLSTM stacks, remat on, as the JAX
+    package's."""
+    tree, model, cfg, jcfg = _ref_model(2, cfg_name)
+    tokens, labels = _tokens(3, 2, 8, cfg.vocab_size)
+    batch = {"tokens": tokens, "labels": labels}
+    if cfg.is_encoder_decoder:
+        batch["frames"] = normal(rng(4), 2, 8, cfg.d_model)
+    if cfg.mrope:
+        t = np.arange(8)
+        batch["mrope_positions"] = np.broadcast_to(
+            np.stack([t, t // 2, t % 3])[:, None], (3, 2, 8)).astype(
+            np.int32)
+    jloss, jgrads = jax.jit(jax.value_and_grad(
+        lambda p, b: jmodel.loss_fn(p, b, jcfg)))(
+        jax.tree_util.tree_map(jnp.asarray, tree),
+        {k: jnp.asarray(v) for k, v in batch.items()})
+    loss, grads = train.value_and_grad(
+        model, {k: th(v) for k, v in batch.items()}, cfg)
+    assert abs(float(loss) - float(jloss)) < LOSS_TOL
+    want = dict(jax.tree_util.tree_flatten_with_path(_np_tree(jgrads))[0])
+    got = jax.tree_util.tree_flatten_with_path(
+        jax.tree_util.tree_map(np_of, lm_tree(grads, cfg)))[0]
+    assert len(got) == len(want)
+    for path, g in got:
+        assert _rel_err(g, want[path]) <= GRAD_RTOL, \
+            jax.tree_util.keystr(path)
 
 
 # ---------------------------------------------------------------------------
