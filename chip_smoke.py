@@ -188,6 +188,39 @@ What it does, in order:
      five kernels launched.  It prints the batch p50 healthy, partial,
      hedged and recovering, the recoveries, hedges and the snapshot's
      save and restore ms;
+   * the mesh path (``launch/mesh.py``, ``parallel/``), after the fleet
+     phase: ``run_ranks`` starts 8 ranks on the one card, joined by gloo
+     (NCCL puts no two ranks of a communicator on one device), on CUDA
+     tensors (``parallel/collectives.py``'s table; the pipeline's hops
+     staged through pinned host buffers); the parent makes the data once
+     and shares it through host memory, each rank copying its own shard to
+     the card.  kNN: the 2.3 M points in 8 map shards of 287,500 x 217 on
+     a (8,) data mesh, each map building its shard's aggregates from the
+     kNN phase's draw at compression 100 and running ``accurateml_map``
+     with its bound at eps 0 and 0.01; ``MapReduce(mesh)`` all-gathers,
+     ``merge_topk`` and ``majority_vote`` (checked: the labels of
+     ``run_accurateml(..., n_shards=8)`` on the same draws, the merged
+     top-k the bits of ``MapReduce(mesh=None)`` over the 8 stacked shards,
+     the same shuffle bytes).  CF: one ``accurateml_map`` with-bound batch
+     over the first 48,016 users (48,019 does not divide by 8: 3 users
+     cut), 8 shards of 6,002 x 17,700, 1024 active users, eps 0.05, psum
+     (num, den, varsum within 2e-4 of the 8 single-device shards summed).
+     All seven kNN and CF kernels must launch on every rank.  One MoE layer
+     of moonshot-v1-16b-a3b at its published widths (d_model 2,048, 64
+     experts of 1,408, top-6, 2 shared; f32, no drops) on a (2, 4) data x
+     model mesh through ``_moe_ep_sharded``: ``moe_ep``, ``moe_ep_a2a``
+     (bf16 buffers) and the decode arm at B 1, against ``moe_dense`` on
+     one rank within 2e-4 (2e-2 for the a2a buffers).  Two 4-stage
+     ``pipeline_apply`` GPipe pipelines of ``tanh(x @ w)`` at d 4,096 with
+     8 microbatches, forward and gradient against ``sequential_reference``
+     within 1e-4.  Four steps of qwen3-8b at the smoke widths on (2, 4)
+     (parameters placed by ``param_shardings``) against the single-rank
+     step within 1e-5 (``tests/test_torch_train.py``'s rounding rule), one
+     checkpoint saved from that placement and restored onto a (2, 2) mesh
+     of 4 ranks with ``shardings=`` (``param_shardings`` there), the same
+     bits.  It prints each job's time (the
+     slowest rank's), the peak memory a rank, the card's name and power
+     limit: 8 ranks time-sliced on one card, no multi-GPU figure;
    * training, after the kernels are held (it runs none of them): qwen3-8b
      at its published widths, 2 layers deep (1.63 B parameters, bf16
      weights, f32 AdamW moments), ``make_train_step`` on 6
@@ -258,6 +291,7 @@ import gc
 import json
 import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -3062,6 +3096,502 @@ def print_fleet(summary, smi):
 
 
 # ---------------------------------------------------------------------------
+# the mesh path: 8 ranks on the one card under gloo
+# ---------------------------------------------------------------------------
+
+MESH_RANKS = 8
+MESH_TIMEOUT_S = 480.0
+CF_MESH_USERS = 48_016        # 48,019 does not divide by 8: 3 users cut
+EP_ARCH = "moonshot-v1-16b-a3b"
+EP_MESH = (2, 4)              # data x model
+EP_TOKENS = (2, 256)          # [B, S]: B over data, S over model
+EP_TOL = 2e-4                 # f32, tests/_subproc/multidevice_checks.py
+A2A_TOL = 2e-2                # bf16 dispatch buffers, the same check
+PIPE = {"stages": 4, "d": 4096, "micro": 8, "rows": 64}
+PIPE_TOL = 1e-4               # the reference check's gradient tolerance
+MESH_TRAIN = {"arch": "qwen3-8b", "steps": 4, "batch": 4, "seq": 64}
+MESH_TRAIN_TOL = 1e-5
+MESH_KERNELS = ("distance_topk", "candidate_topk", "knn_distance",
+                "refine_distances", "lsh_hash", "cf_weights", "cf_refine")
+
+
+def _mesh_sync(torch, dev):
+    import torch.distributed as dist
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    dist.barrier()
+
+
+def _within(torch, got, want, tol) -> tuple[bool, float]:
+    """(every entry within rtol = atol = tol, the largest abs error)."""
+    err = (got.float() - want.float()).abs()
+    return (bool((err <= tol + tol * want.float().abs()).all()),
+            float(err.max()))
+
+
+def _moe_view(torch, weights, dev, rows=None):
+    """The MoE weights (a dict of host tensors) on ``dev``, the experts'
+    ``rows`` only where given."""
+    import types
+
+    def on(name):
+        t = weights[name]
+        return (t if rows is None or not name.startswith("w_")
+                else t[rows]).to(dev)
+
+    return types.SimpleNamespace(
+        router=on("router"), w_gate=on("w_gate"), w_up=on("w_up"),
+        w_down=on("w_down"), shared=types.SimpleNamespace(
+            **{k: weights[f"shared.{k}"].to(dev)
+               for k in ("w_gate", "w_up", "w_down")}))
+
+
+def mesh_rank(rank: int, job: dict) -> dict:
+    """One rank of the mesh phase (``run_ranks``): every job of
+    ``mesh_phase``'s docstring, timed between barriers.  Returns its
+    outputs, checks, times, launches and peak memory."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch import optim
+    from repro_torch.apps import cf, knn
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.core import engine, lsh
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import train as train_lib
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import (
+        ParallelContext, _moe_ep_sharded,
+    )
+    from repro_torch.parallel import pipeline_parallel, sharding
+
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if job["dev"] == "cuda" else torch.device("cpu"))
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.cuda.reset_peak_memory_stats()
+    n = job["ranks"]
+    out = {"ms": {}}
+
+    def timed(name, fn):
+        _mesh_sync(torch, dev)
+        t0 = time.perf_counter()
+        res = fn()
+        _mesh_sync(torch, dev)
+        out["ms"][name] = (time.perf_counter() - t0) * 1e3
+        return res
+
+    # ---- kNN: 8 map shards, all_gather, merge_topk, majority_vote ----
+    mesh = mesh_lib.make_host_mesh((n,), ("data",), device=job["dev"])
+    r = mesh.get_local_rank(0)
+    ops.reset_launch_counts()
+    x = engine.shard_leading(mesh, "data", job["knn_x"])
+    y = engine.shard_leading(mesh, "data", job["knn_y"])
+    q = job["q"].to(dev)
+    n_s = x.to_local().shape[0]
+    a, b = job["knn_draws"][r]
+    params = lsh.LSHParams(a=a.to(dev), b=b.to(dev),
+                           config=lsh.config_for_compression(n_s, RATIO))
+
+    def reduce_fn(g):
+        d, lab = knn.merge_topk(g[0], g[1], K)
+        return (d, lab, knn.majority_vote(d, lab, N_CLASSES),
+                g[2].max(0).values)
+
+    out["knn"] = {}
+    for eps, budget in job["knn_budgets"].items():
+        eng = engine.MapReduce(mesh)
+        res = timed(f"knn eps={eps}", lambda: eng.run(
+            partial(knn_mesh_map, knn, params=params, q=q, budget=budget),
+            engine.CombineSpec("all_gather", reduce_fn), x, y))
+        out["knn"][eps] = {"out": [t.cpu() for t in res],
+                           "shuffle": eng.last_shuffle_bytes}
+    del x, y
+
+    # ---- CF: one accurateml_map with_bound batch, psum ----
+    cr = engine.shard_leading(mesh, "data", job["cf_r"])
+    cm = engine.shard_leading(mesh, "data", job["cf_m"])
+    ca, cam = job["cf_a"].to(dev), job["cf_am"].to(dev)
+    a, b = job["cf_draws"][r]
+    cparams = lsh.LSHParams(a=a.to(dev), b=b.to(dev),
+                            config=lsh.config_for_compression(
+                                cr.to_local().shape[0], CF_RATIO,
+                                n_hashes=4, bucket_width=8.0))
+    eng = engine.MapReduce(mesh)
+    res = timed("cf psum", lambda: eng.run(
+        partial(cf_mesh_map, cf, params=cparams, a=ca, am=cam,
+                budget=job["cf_budget"]),
+        engine.CombineSpec("psum"), cr, cm))
+    out["cf"] = {"out": [t.cpu() for t in res],
+                 "shuffle": eng.last_shuffle_bytes}
+    out["launches"] = ops.launch_counts()
+    del cr, cm, ca, cam, res
+
+    # ---- expert parallelism: a (2, 4) data x model mesh ----
+    mesh24 = mesh_lib.make_host_mesh(EP_MESH, ("data", "model"),
+                                     device=job["dev"])
+    cfg = job["ep_cfg"]
+    ctx = ParallelContext(mesh=mesh24, data_axes=("data",), use_ep=True)
+    mr = mesh24.get_local_rank(1)
+    e_loc = cfg.n_experts // EP_MESH[1]
+    local = _moe_view(torch, job["ep_w"], dev,
+                      slice(mr * e_loc, (mr + 1) * e_loc))
+    ex = job["ep_x"].to(dev)
+    ep = {}
+    with torch.no_grad():
+        for arm, xx, c in (("all_gather", ex, cfg),
+                           ("all_to_all", ex,
+                            cfg.with_(moe_dispatch="all_to_all")),
+                           ("decode", ex[:1, :1], cfg)):
+            ep[arm] = timed(f"ep {arm}",
+                            lambda: _moe_ep_sharded(local, xx, c, ctx))
+        del local
+        if rank == 0:
+            full = _moe_view(torch, job["ep_w"], dev)
+            dense = moe.moe_dense(full, ex, cfg)
+            dense1 = moe.moe_dense(full, ex[:1, :1], cfg)
+            out["ep"] = {arm: _within(
+                torch, got, dense1 if arm == "decode" else dense,
+                A2A_TOL if arm == "all_to_all" else EP_TOL)
+                for arm, got in ep.items()}
+            del full
+        out["ep_sums"] = {arm: float(got.double().sum())
+                          for arm, got in ep.items()}
+    del ep, ex
+
+    # ---- pipeline: two 4-stage pipelines on a (2, 4) data x pipe mesh ----
+    pmesh = mesh_lib.make_host_mesh((n // PIPE["stages"], PIPE["stages"]),
+                                    ("data", "pipe"), device=job["dev"])
+    stage = pmesh.get_local_rank(1)
+    w_all = job["pipe_w"].to(dev)
+    w_here = w_all[stage:stage + 1].clone().requires_grad_(True)
+    w_dt = DTensor.from_local(w_here, pmesh, [Replicate(), Shard(0)],
+                              run_check=False)
+    micro = job["pipe_micro"].to(dev)
+
+    def stage_fn(w, xx):
+        return torch.tanh(xx @ w)
+
+    def pipe_step():
+        got = pipeline_parallel.pipeline_apply(stage_fn, w_dt, micro, pmesh,
+                                               axis="pipe")
+        (got ** 2).sum().backward()
+        return got.detach()
+
+    got = timed("pipeline", pipe_step)
+    w_ref = w_all.clone().requires_grad_(True)
+    want = pipeline_parallel.sequential_reference(stage_fn, w_ref, micro)
+    (want ** 2).sum().backward()
+    out["pipe"] = {"forward": _within(torch, got, want.detach(), PIPE_TOL),
+                   "grad": _within(torch, w_here.grad[0], w_ref.grad[stage],
+                                   PIPE_TOL)}
+    del w_all, w_here, w_dt, w_ref, micro, got, want
+
+    # ---- sharded training on (2, 4), one checkpoint onto 4 ranks ----
+    tcfg = get_config(MESH_TRAIN["arch"], smoke=True)
+    opt_cfg = optim.AdamWConfig(lr=1e-3, warmup_steps=1,
+                                total_steps=MESH_TRAIN["steps"])
+
+    def fresh():
+        return model_lib.init_params(
+            tcfg, torch.Generator(dev).manual_seed(0), device=dev)
+
+    model = fresh()
+    named = model_lib.param_tree(model)
+    sharding.place_params(model, sharding.param_shardings(named, tcfg,
+                                                          mesh24))
+    opt = optim.init_state(sharding.local_tree(model_lib.param_tree(model)))
+    step = train_lib.make_train_step(
+        tcfg, opt_cfg, ParallelContext(mesh=mesh24, data_axes=("data",)))
+    batches = [train_lib.synth_batch(
+        torch.Generator(dev).manual_seed(5 + i), tcfg,
+        batch=MESH_TRAIN["batch"], seq=MESH_TRAIN["seq"], device=dev)
+        for i in range(MESH_TRAIN["steps"])]
+
+    def train_steps():
+        nonlocal model, opt
+        losses = []
+        for batch in batches:
+            model, opt, metrics = step(model, opt, batch)
+            losses.append(float(metrics["loss"]))
+        return losses
+
+    losses = timed("train", train_steps)
+    params = model_lib.param_tree(model)
+    whole = {k: sharding.gather(p) for k, p in params.items()}
+    if rank == 0:
+        single = fresh()
+        _, g1 = train_lib.value_and_grad(single, batches[0], tcfg)
+        sstate = optim.init_state(model_lib.param_tree(single))
+        sstep = train_lib.make_train_step(tcfg, opt_cfg)
+        slosses = []
+        for batch in batches:
+            single, sstate, metrics = sstep(single, sstate, batch)
+            slosses.append(float(metrics["loss"]))
+        worst, exempt = 0.0, 0
+        for k, p in model_lib.param_tree(single).items():
+            g = g1[k].abs()
+            noise = g <= 1e-5 * g.max()
+            diff = (whole[k] - p).abs()
+            worst = max(worst, float(torch.where(noise, 0.0, diff).max()))
+            exempt += int((noise & (diff > MESH_TRAIN_TOL)).sum())
+        out["train"] = {"losses": losses, "single_losses": slosses,
+                        "loss_err": max(abs(u - v) for u, v in
+                                        zip(losses, slosses)),
+                        "param_err": worst, "noise_entries_off": exempt}
+    ck = Checkpointer(job["ckpt_dir"], device=job["dev"])
+    t0 = time.perf_counter()
+    ck.save(MESH_TRAIN["steps"], params, extra={"ranks": n})
+    save_ms = (time.perf_counter() - t0) * 1e3
+    mesh4 = mesh_lib.make_host_mesh((2, n // 4), ("data", "model"),
+                                    device=job["dev"])
+    shardings4 = sharding.param_shardings(params, tcfg, mesh4)
+    if mesh_lib.in_mesh(mesh4):
+        template = {k: torch.zeros(p.shape, dtype=p.dtype)
+                    for k, p in params.items()}
+        t0 = time.perf_counter()
+        restored, extra = ck.restore(template, shardings=shardings4)
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        back = {k: sharding.gather(t) for k, t in restored.items()}
+        out["ckpt"] = {
+            "equal": all(torch.equal(back[k], whole[k]) for k in whole),
+            "extra": extra, "save_ms": save_ms, "restore_ms": restore_ms,
+            "moved": sum(t.to_local().numel() for t in restored.values()),
+            "leaves": len(restored)}
+    dist.barrier()
+    out["peak_gib"] = (torch.cuda.max_memory_allocated() / 2**30
+                       if dev.type == "cuda" else 0.0)
+    return out
+
+
+def knn_mesh_map(knn, x, y, *, params, q, budget):
+    """A kNN map task of the mesh phase: the shard's aggregates from its
+    draw (the kNN phase's), then ``accurateml_map`` with its bound."""
+    agg = knn.build_knn_aggregates(x, y, params, N_CLASSES)
+    return knn.accurateml_map(x, y, agg, q, k=K, refine_budget=budget,
+                              with_bound=True)
+
+
+def cf_mesh_map(cf, r, m, *, params, a, am, budget):
+    """A CF map task of the mesh phase: the shard's aggregates from its
+    draw, then ``accurateml_map`` with its bound (num, den, varsum)."""
+    agg = cf.build_cf_aggregates(r, m, params)
+    return cf.accurateml_map(r, m, agg, a, am, refine_budget=budget,
+                             with_bound=True)
+
+
+def mesh_phase(torch, knn_data, cf_data, *, dev="cuda", ranks=MESH_RANKS,
+               cf_users=CF_MESH_USERS, ep_cfg=None, ep_tokens=EP_TOKENS,
+               pipe=PIPE, timeout=MESH_TIMEOUT_S):
+    """The mesh path: ``run_ranks`` starts 8 ranks on the one card (gloo:
+    NCCL puts no two ranks of a communicator on one device), each on its
+    own shard of data the parent made once and shares through host memory.
+    Checked against the single-process path on the same draws: the kNN
+    labels (``run_accurateml``), the merged distances to the bit and the
+    shuffle bytes (``MapReduce(mesh=None)`` over the 8 stacked shards),
+    CF's num, den and varsum within 2e-4, the seven kNN and CF kernels
+    launched on every rank, the MoE layer against ``moe_dense``, the
+    pipeline against ``sequential_reference``, the sharded train step
+    against the single-rank one within 1e-5 and the checkpoint's restored
+    leaves to the bit.  Returns (summary, launches summed over the
+    ranks)."""
+    import tempfile
+
+    from repro_torch.apps import cf, knn
+    from repro_torch.configs import get_config
+    from repro_torch.core import engine, lsh, refine
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models import layers, moe
+
+    t_phase = time.perf_counter()
+    train_x, train_y, test_x, _ = knn_data
+    n_s = train_x.shape[0] // ranks
+    gen = torch.Generator(dev).manual_seed(1)      # the kNN phase's draws
+    knn_draws = [lsh.init_lsh(gen, train_x.shape[1],
+                              lsh.config_for_compression(n_s, RATIO),
+                              device=dev) for _ in range(ranks)]
+    nr, nm, a, am = (t for t in cf_data[:4])
+    nr, nm = nr[:cf_users], nm[:cf_users]
+    cf_s = cf_users // ranks
+    gen = torch.Generator(dev).manual_seed(11)     # the CF phase's draws
+    cf_draws = [lsh.init_lsh(gen, nr.shape[1], lsh.config_for_compression(
+        cf_s, CF_RATIO, n_hashes=4, bucket_width=8.0), device=dev)
+        for _ in range(ranks)]
+    knn_budgets = {eps: refine.eps_to_budget(n_s, eps) for eps in EPS_LEVELS}
+    cf_budget = refine.eps_to_budget(cf_s, CF_EPS_LEVELS[-1])
+
+    # the single-process path on the same draws
+    want_knn = {}
+    for eps, budget in knn_budgets.items():
+        labels = knn.run_accurateml(
+            train_x, train_y, test_x, k=K, n_classes=N_CLASSES,
+            compression_ratio=RATIO, eps_max=eps, lsh_params=knn_draws,
+            n_shards=ranks, device=dev)
+        stacked, nbytes = [], 0
+        for s in range(ranks):
+            eng = engine.MapReduce()
+            rows = slice(s * n_s, (s + 1) * n_s)
+            stacked.append(eng.run(
+                partial(knn_mesh_map, knn, params=knn_draws[s], q=test_x,
+                        budget=budget),
+                engine.CombineSpec("all_gather"), train_x[rows],
+                train_y[rows]))
+            nbytes += eng.last_shuffle_bytes
+        d, lab = knn.merge_topk(torch.cat([o[0] for o in stacked]),
+                                torch.cat([o[1] for o in stacked]), K)
+        want_knn[eps] = {"labels": labels.cpu(), "d": d.cpu(),
+                         "l": lab.cpu(), "shuffle": nbytes}
+        del stacked
+    want_cf, cf_bytes = None, 0
+    for s in range(ranks):
+        eng = engine.MapReduce()
+        rows = slice(s * cf_s, (s + 1) * cf_s)
+        o = eng.run(partial(cf_mesh_map, cf, params=cf_draws[s], a=a, am=am,
+                            budget=cf_budget),
+                    engine.CombineSpec("psum"), nr[rows], nm[rows])
+        want_cf = o if want_cf is None else [u + v for u, v in
+                                             zip(want_cf, o)]
+        cf_bytes += eng.last_shuffle_bytes
+    want_cf = [t.cpu() for t in want_cf]
+
+    # the host copies the ranks share (each copies its own shard over)
+    ep_cfg = ep_cfg or get_config(EP_ARCH).with_(
+        capacity_factor=MOE_NO_DROP, dtype="float32")
+    w = moe.moe_init(layers.Init(torch.Generator(dev).manual_seed(0),
+                                 dtype=torch.float32, device=torch.device(
+                                     dev)), ep_cfg)
+    g = torch.Generator(dev).manual_seed(3)
+    scale = 1.0 / math.sqrt(pipe["d"])
+    host = lambda t: t.detach().cpu().contiguous()  # noqa: E731
+    job = {
+        "dev": dev, "ranks": ranks,
+        "knn_x": host(train_x), "knn_y": host(train_y), "q": host(test_x),
+        "knn_draws": [(host(p.a), host(p.b)) for p in knn_draws],
+        "knn_budgets": knn_budgets,
+        "cf_r": host(nr), "cf_m": host(nm), "cf_a": host(a),
+        "cf_am": host(am), "cf_draws": [(host(p.a), host(p.b))
+                                        for p in cf_draws],
+        "cf_budget": cf_budget, "ep_cfg": ep_cfg,
+        "ep_w": {k: host(v) for k, v in w.named_parameters()},
+        "ep_x": host(torch.randn((*ep_tokens, ep_cfg.d_model), generator=g,
+                                 device=dev)),
+        "pipe_w": host(torch.randn((pipe["stages"], pipe["d"], pipe["d"]),
+                                   generator=g, device=dev) * scale),
+        "pipe_micro": host(torch.randn((pipe["micro"], pipe["rows"],
+                                        pipe["d"]), generator=g,
+                                       device=dev)),
+    }
+    del w
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    shm = shutil.disk_usage("/dev/shm") if Path("/dev/shm").exists() \
+        else None
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        job["ckpt_dir"] = tmp
+        t0 = time.perf_counter()
+        results = run_ranks(mesh_rank, ranks, job, device=dev,
+                            timeout=timeout)
+        world_s = time.perf_counter() - t0
+
+    # ---- checks ----
+    for eps, want in want_knn.items():
+        for rk, res in enumerate(results):
+            d, lab, vote, bound = res["knn"][eps]["out"]
+            if not torch.equal(vote, want["labels"]):
+                fail(f"mesh kNN eps={eps}: rank {rk}'s labels differ from "
+                     f"run_accurateml's on {int((vote != want['labels']).sum())}"
+                     " queries")
+            if not (torch.equal(d, want["d"]) and torch.equal(lab, want["l"])):
+                fail(f"mesh kNN eps={eps}: rank {rk}'s merged top-k is not "
+                     "the bits of MapReduce(mesh=None) over the stacked "
+                     "shards")
+            if res["knn"][eps]["shuffle"] != want["shuffle"]:
+                fail(f"mesh kNN eps={eps}: shuffle bytes "
+                     f"{res['knn'][eps]['shuffle']} != {want['shuffle']}")
+            if not bool(((bound >= 0) & (bound <= 1)).all()):
+                fail(f"mesh kNN eps={eps}: a bound outside [0, 1]")
+    cf_err = 0.0
+    for rk, res in enumerate(results):
+        for name, got, want in zip(("num", "den", "varsum"),
+                                   res["cf"]["out"], want_cf):
+            ok, err = _within(torch, got, want, CF_TOL)
+            cf_err = max(cf_err, err)
+            if not ok:
+                fail(f"mesh CF: rank {rk}'s {name} off by {err:.3e}")
+        if res["cf"]["shuffle"] != cf_bytes:
+            fail(f"mesh CF: shuffle bytes {res['cf']['shuffle']} != "
+                 f"{cf_bytes}")
+        if dev == "cuda":
+            missing = [op for op in MESH_KERNELS
+                       if res["launches"][op] == 0]
+            if missing:
+                fail(f"mesh phase: rank {rk} never launched {missing}")
+        if res["ep_sums"] != results[0]["ep_sums"]:
+            fail(f"mesh EP: rank {rk}'s outputs differ from rank 0's")
+        for what, (ok, err) in res["pipe"].items():
+            if not ok:
+                fail(f"mesh pipeline: rank {rk}'s {what} off by {err:.3e}")
+    for arm, (ok, err) in results[0]["ep"].items():
+        if not ok:
+            fail(f"mesh EP {arm}: off moe_dense by {err:.3e}")
+    tr = results[0]["train"]
+    if tr["loss_err"] > MESH_TRAIN_TOL or tr["param_err"] > MESH_TRAIN_TOL:
+        fail(f"mesh train: losses off by {tr['loss_err']:.3e}, parameters "
+             f"by {tr['param_err']:.3e} against the single-rank step")
+    for rk in range(ranks // 2):
+        ck = results[rk]["ckpt"]
+        if not ck["equal"] or ck["extra"] != {"ranks": ranks}:
+            fail(f"mesh checkpoint: rank {rk}'s restore onto 4 ranks is not "
+                 "the saved bits")
+    if any("ckpt" in res for res in results[ranks // 2:]):
+        fail("mesh checkpoint: a rank outside the 4-rank mesh restored")
+    launches = {op: sum(res["launches"][op] for res in results)
+                for op in MESH_KERNELS}
+    jobs = {name: [res["ms"][name] for res in results]
+            for name in results[0]["ms"]}
+    summary = {
+        "ranks": ranks, "transport": "gloo on CUDA tensors "
+        "(parallel/collectives.py GLOO_CUDA; hops staged through the host)",
+        "job_ms_rank0": results[0]["ms"],
+        "job_ms_max": {k: max(v) for k, v in jobs.items()},
+        "world_s": world_s, "phase_s": time.perf_counter() - t_phase,
+        "peak_gib_per_rank": [res["peak_gib"] for res in results],
+        "knn_shard": [n_s, train_x.shape[1]], "cf_shard": [cf_s,
+                                                          nr.shape[1]],
+        "cf_users_cut": int(cf_data[0].shape[0]) - cf_users,
+        "knn_budgets": knn_budgets, "cf_budget": cf_budget,
+        "shuffle_bytes": {f"knn eps={e}": want_knn[e]["shuffle"]
+                          for e in want_knn} | {"cf": cf_bytes},
+        "cf_max_abs_err": cf_err, "ep": results[0]["ep"],
+        "pipe": results[0]["pipe"], "train": tr,
+        "ckpt": {k: results[0]["ckpt"][k] for k in
+                 ("save_ms", "restore_ms", "leaves")},
+        "launches_per_rank": [res["launches"] for res in results],
+        "dev_shm_free_gib": None if shm is None else shm.free / 2**30,
+    }
+    return summary, launches
+
+
+def print_mesh(summary, smi):
+    ms = summary["job_ms_max"]
+    print(f"mesh: {summary['ranks']} ranks on one card through "
+          f"{summary['transport']}; world {summary['world_s']:.1f} s, phase "
+          f"{summary['phase_s']:.1f} s; slowest rank's job ms "
+          + ", ".join(f"{k} {v:.1f}" for k, v in ms.items())
+          + f"; peak {max(summary['peak_gib_per_rank']):.2f} GiB a rank; "
+          f"EP errors {summary['ep']}; pipeline {summary['pipe']}; train "
+          f"losses {summary['train']['losses']}; checkpoint save "
+          f"{summary['ckpt']['save_ms']:.1f} ms, restore onto 4 ranks "
+          f"{summary['ckpt']['restore_ms']:.1f} ms; card: {smi} (8 ranks "
+          "time-sliced on one card: no multi-GPU figure)")
+
+
+# ---------------------------------------------------------------------------
 # the training path: qwen3-8b's widths, 2 layers, and the blockwise backward
 # ---------------------------------------------------------------------------
 
@@ -3556,6 +4086,15 @@ def main() -> int:
     print(json.dumps({"fleet": fleet_summary, "card": smi}))
     check_launched("fleet", counts_fleet, FLEET_KERNELS)
 
+    # ---- the mesh path: 8 ranks on the one card under gloo ----
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_summary, counts_mesh = mesh_phase(
+        torch, (train_x, train_y, test_x, test_y), cf_data)
+    print_mesh(mesh_summary, smi)
+    print(json.dumps({"mesh": mesh_summary, "card": smi}, default=str))
+    check_launched("mesh", counts_mesh, MESH_KERNELS)
+
     # ---- every kernel against its plain version ----
     counts = {**counts_knn, **{op: counts_cf[op] for op in CF_KERNELS},
               **{op: counts_lm[op] for op in ATTN_KERNELS}}
@@ -3571,6 +4110,8 @@ def main() -> int:
         counts[op] += counts_serve[op]
     for op in FLEET_KERNELS:
         counts[op] += counts_fleet[op]
+    for op in MESH_KERNELS:
+        counts[op] += counts_mesh[op]
     all_jobs = {**jobs, **cf_jobs_out,
                 "lsh phase": {"launches": {op: counts_lsh[op]
                                            for op in LSH_KERNELS}},
@@ -3580,6 +4121,7 @@ def main() -> int:
                                              for op in SERVE_KERNELS}},
                 "fleet phase": {"launches": {op: counts_fleet[op]
                                              for op in FLEET_KERNELS}},
+                "mesh phase (8 ranks)": {"launches": counts_mesh},
                 **lm_jobs}
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device="cuda")
     rows = [kernel_row(torch, ref, topk_stream, ops, op, probe.calls[op],

@@ -406,6 +406,7 @@ class CFServable(serve_servable.LSHServableBase):
         *, refine_budget: int,
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """-> (predictions [Q,I], bound [Q] in stars)."""
+        self.check_stage2(refine_budget)
         active, active_mask = (self.batch_tensor(x) for x in batch_payload)
         map_fn = partial(
             accurateml_map, refine_budget=refine_budget, with_bound=True

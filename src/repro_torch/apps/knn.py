@@ -531,6 +531,7 @@ class KNNServable(serve_servable.LSHServableBase):
         *, refine_budget: int,
     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
         """-> (d [Q,k], labels [Q,k], vote [Q], bound [Q])."""
+        self.check_stage2(refine_budget)
         test_x = self.batch_tensor(batch_payload[0])
 
         def reduce_fn(g):

@@ -21,8 +21,16 @@ leaf is written as the JAX package writes it (``ml_dtypes``' bfloat16
 saves as the ``.npy`` descr ``<V2``: two raw bytes an element) with
 ``"dtype": "bfloat16"`` in the manifest, and restored by a bit-cast.
 (The JAX package's own ``restore`` cannot read such a file back: ROADMAP
-queue 3.)  Restoring onto another mesh (``shardings=``) waits for the
-port's ``parallel/``.
+queue 3.)
+
+Sharded trees: a DTensor leaf is saved whole (gathered over its mesh by
+``parallel.sharding.gather``, the port's collectives: DTensor's own
+``full_tensor`` crashes under gloo on CUDA tensors), so the files are the
+same as an unsharded save's.  Such a save is a collective: every rank
+calls it, rank 0 of the world writes, and a blocking save (or ``wait``)
+ends at a barrier.  ``restore(..., shardings=)`` places each leaf by its
+``NamedSharding`` (``parallel.sharding``) on that sharding's mesh, which
+may differ from the one that saved: elastic restore.
 """
 from __future__ import annotations
 
@@ -35,6 +43,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import tree as tree_lib
 from repro_torch.device import resolve
@@ -49,9 +58,19 @@ _NUMPY_DTYPES = {
 }
 
 
+def _is_dtensor(leaf: Any) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(leaf, DTensor)
+
+
 def _host(leaf: Any) -> tuple[np.ndarray, str]:
     """(a host copy of ``leaf`` as numpy, its manifest dtype); a bf16
-    tensor's copy is its bits as int16."""
+    tensor's copy is its bits as int16; a DTensor's, the whole tensor's."""
+    if _is_dtensor(leaf):
+        from repro_torch.parallel import sharding
+
+        leaf = sharding.gather(leaf)
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
@@ -102,13 +121,15 @@ class Checkpointer:
         self.dir.mkdir(parents=True, exist_ok=True)
         self.device = device
         self._thread: threading.Thread | None = None
+        self._collective = False
 
     # ------------------------------------------------------------- save --
     def save(self, step: int, tree: Any, *, extra: dict | None = None,
              blocking: bool = True) -> Path:
         """Snapshot ``tree`` to the host and write step_<N> atomically."""
-        flat = {key: _host(leaf)
-                for key, leaf in tree_lib.flatten_with_path(tree)}
+        leaves = tree_lib.flatten_with_path(tree)
+        flat = {key: _host(leaf) for key, leaf in leaves}
+        self._collective = any(_is_dtensor(leaf) for _, leaf in leaves)
         if self._thread is not None:
             self._thread.join()          # one async save in flight at a time
 
@@ -136,17 +157,27 @@ class Checkpointer:
             latest_tmp.write_text(str(step))
             latest_tmp.rename(self.dir / "LATEST")
 
-        if blocking:
+        if self._collective and dist.get_rank() != 0:
+            pass                         # rank 0 writes a sharded tree
+        elif blocking:
             _write()
         else:
             self._thread = threading.Thread(target=_write, daemon=True)
             self._thread.start()
+        if blocking:
+            self._barrier()
         return self.dir / f"step_{step}"
+
+    def _barrier(self):
+        if self._collective:
+            dist.barrier()
+            self._collective = False
 
     def wait(self):
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        self._barrier()
 
     # ---------------------------------------------------------- restore --
     def latest_step(self) -> int | None:
@@ -155,19 +186,29 @@ class Checkpointer:
             return None
         return int(latest.read_text().strip())
 
-    def restore(self, template: Any, *, step: int | None = None
-                ) -> tuple[Any, dict]:
+    def restore(self, template: Any, *, step: int | None = None,
+                shardings: Any = None) -> tuple[Any, dict]:
         """Load into the structure of ``template`` (a tree of tensors or
         numpy arrays: each leaf gives the shape and dtype), as tensors on
-        the checkpointer's device.  Returns (tree, extra)."""
+        the checkpointer's device.  ``shardings``, a matching tree of
+        ``parallel.sharding.NamedSharding`` (or None leaves), places each
+        leaf as a DTensor on its mesh: this rank's block, with no
+        communication, so the mesh may differ from the one that saved.
+        Returns (tree, extra)."""
+        from repro_torch.parallel import sharding as sharding_lib
+
         dev = resolve(self.device)
+        sh_leaves = (tree_lib.flatten_up_to(template, shardings)
+                     if shardings is not None
+                     else [None] * len(tree_lib.leaves(template)))
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.dir}")
         d = self.dir / f"step_{step}"
         manifest = json.loads((d / "manifest.json").read_text())
         out = []
-        for key, leaf in tree_lib.flatten_with_path(template):
+        for (key, leaf), sh in zip(tree_lib.flatten_with_path(template),
+                                   sh_leaves):
             arr = np.load(d / (key.replace("/", "__") + ".npy"))
             shape = tuple(np.shape(leaf))
             if tuple(arr.shape) != shape:
@@ -176,6 +217,7 @@ class Checkpointer:
                     f"template {shape}"
                 )
             dtype_name = manifest["keys"].get(key, {}).get("dtype", "")
-            out.append(_to_tensor(arr, dtype_name).to(
-                device=dev, dtype=_torch_dtype(leaf)))
+            t = _to_tensor(arr, dtype_name).to(dtype=_torch_dtype(leaf))
+            out.append(t.to(dev) if sh is None
+                       else sharding_lib.place(t, sh, device=dev))
         return tree_lib.unflatten(template, out), manifest.get("extra", {})

@@ -144,7 +144,7 @@ def _index(node, u: int):
         return None
     if isinstance(node, dict):
         return {k: _index(v, u) for k, v in node.items()}
-    if isinstance(node, torch.Tensor):
+    if isinstance(node, (torch.Tensor, list)):
         return node[u]
     return np.asarray(node)[u]
 

@@ -20,6 +20,17 @@ cross-attention's zero-initialised memory caches, as the JAX package's
 ``param_tree`` names the parameters for the optimizer and the
 checkpointer, the shared block once, as ``shared_attn.*`` (its gradient
 sums over its slots); ``convert`` maps that to the JAX package's tree.
+
+``forward``, ``loss_fn``, ``prefill`` and ``serve_step`` take ``parallel``
+(``transformer.ParallelContext``).  Under an active context the tokens are
+this rank's block of the batch over the data axes (the step factories of
+``launch/train.py`` cut it), the weights this rank's views
+(``parallel.sharding.local_views``), and the JAX package's two sharding
+constraints become DTensor activations: between blocks ``[B, S, d]`` is
+placed ``(data, model, None)`` (``_constrain_seq``: this rank's slice of
+the sequence, the next block gathering it back) and the logits ``(data,
+None, model)`` (``_constrain_bsv``); ``loss_fn`` returns the whole batch's
+loss on every rank.
 """
 from __future__ import annotations
 
@@ -31,6 +42,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve
 from repro_torch.models import aggregated_kv, layers, transformer
+from repro_torch.models.transformer import NO_PARALLEL, ParallelContext
+from repro_torch.parallel import collectives
 
 
 def padded_vocab(cfg) -> int:
@@ -143,7 +156,8 @@ def load_param_tree(model: LM, params: dict[str, torch.Tensor]) -> None:
         p.data = t.detach()
 
 
-def _encode(model: LM, frames: torch.Tensor, cfg) -> torch.Tensor:
+def _encode(model: LM, frames: torch.Tensor, cfg,
+            parallel: ParallelContext = NO_PARALLEL) -> torch.Tensor:
     """Whisper's encoder over stub frame embeddings [B, S_enc, d]:
     sinusoidal positions, non-causal blocks, the final norm."""
     bsz, s, _ = frames.shape
@@ -151,11 +165,73 @@ def _encode(model: LM, frames: torch.Tensor, cfg) -> torch.Tensor:
     x = frames + _sinusoidal(pos, cfg.d_model, frames.dtype)
     for blk in model.encoder.blocks:
         x = transformer.block_apply(blk, x, cfg, "attn", positions=pos,
-                                    causal=False)
+                                    causal=False, parallel=parallel)
     return layers.rmsnorm(x, model.encoder.final_norm, cfg.norm_eps)
 
 
+def _placements(parallel: ParallelContext, dim: int | None) -> list:
+    """A batch-sharded activation's DTensor placements: ``Shard(0)`` on
+    the batch axes, ``Shard(dim)`` on the model axis (``Replicate()`` for
+    None)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    return [Shard(0) if a in parallel.batch_axes
+            else Shard(dim) if a == parallel.model_axis and dim is not None
+            else Replicate()
+            for a in parallel.mesh.mesh_dim_names]
+
+
+def _constrain(x: torch.Tensor, parallel: ParallelContext, dim: int):
+    """This rank's block of the batch, replicated over the model axis ->
+    the DTensor whose local part is its slice of ``dim`` over the model
+    axis (the gradient gathers the slices back)."""
+    from torch.distributed.tensor import DTensor
+
+    g = parallel.group(parallel.model_axis)
+    return DTensor.from_local(collectives.scatter_replicated(x, g, dim),
+                              parallel.mesh, _placements(parallel, dim),
+                              run_check=False)
+
+
+def _unconstrain(x, parallel: ParallelContext) -> torch.Tensor:
+    """The inverse of ``_constrain``: a DTensor of ``_constrain`` -> this
+    rank's block of the batch, whole over the model axis; a plain tensor
+    as it is."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return x
+    dim = x.placements[parallel.mesh.mesh_dim_names.index(
+        parallel.model_axis)].dim
+    return collectives.gather_replicated(
+        x.to_local(), parallel.group(parallel.model_axis), dim)
+
+
+def _constrain_seq(x: torch.Tensor, parallel: ParallelContext):
+    """Megatron-SP-style placement between blocks: [B,S,d] over (data,
+    model, None), each rank holding its slice of the sequence; the JAX
+    package's ``with_sharding_constraint``.  Without an active context (or
+    under ``pure_dp``, or a sequence that does not divide) x as it is."""
+    if not parallel.active or parallel.pure_dp:
+        return x
+    tp = parallel.size(parallel.model_axis)
+    if x.shape[1] % tp or x.shape[1] < tp:
+        return x
+    return _constrain(x, parallel, 1)
+
+
+def _constrain_bsv(x: torch.Tensor, parallel: ParallelContext):
+    """[B, S, V] logits over (data, None, model) where V divides by the
+    model axis (not under ``pure_dp``); else x as it is."""
+    if not parallel.active or parallel.pure_dp:
+        return x
+    if x.shape[-1] % parallel.size(parallel.model_axis):
+        return x
+    return _constrain(x, parallel, 2)
+
+
 def forward(model: LM, tokens: torch.Tensor, cfg, *,
+            parallel: ParallelContext = NO_PARALLEL,
             mrope_positions: torch.Tensor | None = None,
             frames: torch.Tensor | None = None,
             remat: bool = False) -> torch.Tensor:
@@ -174,27 +250,35 @@ def forward(model: LM, tokens: torch.Tensor, cfg, *,
             raise ValueError(f"{cfg.name}: an encoder-decoder forward needs "
                              "frames")
         x = x + _sinusoidal(positions, cfg.d_model, x.dtype)
-        memory = _encode(model, frames, cfg)
+        memory = _encode(model, frames, cfg, parallel)
     extra = {"positions": positions, "mrope_positions": mrope_positions,
-             "memory": memory}
+             "memory": memory, "parallel": parallel}
     for blk, kind in zip(model.blocks, model.kinds):
+        x = _unconstrain(x, parallel)
         if remat:
             x = checkpoint(transformer.block_apply, blk, x, cfg, kind,
                            use_reentrant=False, **extra)
         else:
             x = transformer.block_apply(blk, x, cfg, kind, **extra)
-    x = layers.rmsnorm(x, model.final_norm, cfg.norm_eps)
+        x = _constrain_seq(x, parallel)
+    x = layers.rmsnorm(_unconstrain(x, parallel), model.final_norm,
+                       cfg.norm_eps)
     head = model.embed.T if cfg.tie_embeddings else model.lm_head
     return _mask_pad_logits(x @ head, cfg)
 
 
-def loss_fn(model: LM, batch: dict, cfg, *, remat: bool = True
+def loss_fn(model: LM, batch: dict, cfg, *,
+            parallel: ParallelContext = NO_PARALLEL, remat: bool = True
             ) -> torch.Tensor:
     """Next-token cross-entropy.  batch: tokens [B,S], labels [B,S] and
-    optional loss_mask [B,S], mrope_positions [3,B,S] and frames."""
-    logits = forward(model, batch["tokens"], cfg,
+    optional loss_mask [B,S], mrope_positions [3,B,S] and frames.  Under an
+    active ``parallel`` the batch is this rank's block and the loss the
+    whole batch's (the mask's sum taken over the batch axes; each rank's
+    part's gradient is its own)."""
+    logits = forward(model, batch["tokens"], cfg, parallel=parallel,
                      mrope_positions=batch.get("mrope_positions"),
                      frames=batch.get("frames"), remat=remat)
+    logits = _unconstrain(_constrain_bsv(logits, parallel), parallel)
     labels = batch["labels"].long()
     lse = torch.logsumexp(logits.float(), dim=-1)                # [B,S]
     # The JAX package picks the label's logit by a one-hot contraction with
@@ -205,15 +289,25 @@ def loss_fn(model: LM, batch: dict, cfg, *, remat: bool = True
     ll = picked - lse
     mask = batch.get("loss_mask")
     mask = torch.ones_like(ll) if mask is None else mask.to(ll.dtype)
-    return -(ll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+    if not parallel.active:
+        return -(ll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+    den, part = mask.sum(), -(ll * mask).sum()
+    for axis in parallel.batch_axes:
+        den = collectives.all_reduce_sum(den, parallel.group(axis))
+    part = part / torch.clamp_min(den, 1.0)
+    for axis in parallel.batch_axes:
+        part = collectives.reduce_from(part, parallel.group(axis))
+    return part
 
 
 def prefill(model: LM, tokens: torch.Tensor, cfg, *,
+            parallel: ParallelContext = NO_PARALLEL,
             mrope_positions: torch.Tensor | None = None,
             frames: torch.Tensor | None = None) -> torch.Tensor:
     """Inference prefill: the last position's logits [B, V_pad]."""
-    return forward(model, tokens, cfg, mrope_positions=mrope_positions,
-                   frames=frames, remat=False)[:, -1]
+    return forward(model, tokens, cfg, parallel=parallel,
+                   mrope_positions=mrope_positions, frames=frames,
+                   remat=False)[:, -1]
 
 
 def draw_lsh(cfg, generator: torch.Generator, *,
@@ -273,6 +367,7 @@ def aggregated_caches(caches) -> list:
 
 def serve_step(model: LM, caches: list, tokens: torch.Tensor,
                pos: torch.Tensor, cfg, *,
+               parallel: ParallelContext = NO_PARALLEL,
                mrope_positions: torch.Tensor | None = None
                ) -> tuple[torch.Tensor, list]:
     """Decode one token.  tokens [B,1] int; pos [B] int32;
@@ -291,7 +386,7 @@ def serve_step(model: LM, caches: list, tokens: torch.Tensor,
         if cfg.is_encoder_decoder:
             cache, memory_kv = cache["self"], cache["cross"]
         x, _ = transformer.block_decode(
-            blk, x, cfg, kind, cache, pos, rotation,
+            blk, x, cfg, kind, cache, pos, rotation, parallel=parallel,
             mrope_positions=mrope_positions, memory_kv=memory_kv)
     x = layers.rmsnorm(x, model.final_norm, cfg.norm_eps)
     head = model.embed.T if cfg.tie_embeddings else model.lm_head

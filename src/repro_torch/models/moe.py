@@ -17,19 +17,30 @@ contributions into an f32 ``[T, d]``, the port computes every expert's
 slots at once and then adds each token's contributions in expert order,
 so a token's sum is taken in the reference's order.
 
-The expert-parallel paths (``moe_ep``, ``moe_ep_a2a``: ``shard_map`` over a
-mesh axis) are not ported yet: ``moe_apply_local`` refuses an
-``axis_name``.
+The expert-parallel paths run inside a mesh, over the process group of its
+``model`` axis (``axis_name``: the group, the ``shard_map`` axis of the JAX
+package), each rank holding its ``E / n`` experts:
+
+  * ``moe_ep``: all-gather the ranks' tokens, compute the local experts over
+    all of them (``moe_apply_local(experts_slice=...)``), reduce-scatter the
+    contributions back (the JAX package's baseline dispatch);
+  * ``moe_ep_a2a``: pack per-destination buffers of only the tokens routed
+    to each rank's experts, in bf16 as the JAX package does, and exchange
+    them by ``all_to_all_single`` both ways (the DeepSeek-style dispatch).
+
+Their collectives are ``parallel.collectives``' (differentiable).
 """
 from __future__ import annotations
 
 import math
+import types
 
 import torch
 from torch import nn
 import torch.nn.functional as F
 
 from repro_torch.models import layers
+from repro_torch.parallel import collectives
 
 
 class MoE(nn.Module):
@@ -51,6 +62,33 @@ class MoE(nn.Module):
 
 def moe_init(init: layers.Init, cfg) -> MoE:
     return MoE(init, cfg)
+
+
+def axis_size(axis_name) -> int:
+    """The number of ranks of a mesh axis (its process group)."""
+    return collectives.size(axis_name)
+
+
+def local_experts(p: MoE, cfg, axis_name):
+    """The MoE weights this rank of ``axis_name`` computes with: its ``E /
+    n`` experts' slices (the router and the shared experts whole).  Weights
+    that are this rank's slice already (a sharded train step's) are kept."""
+    n, r = axis_size(axis_name), collectives.rank(axis_name)
+    if cfg.n_experts % n:
+        raise ValueError(f"{cfg.n_experts} experts do not divide by the "
+                         f"axis's {n} ranks")
+    e_loc = cfg.n_experts // n
+    view = types.SimpleNamespace(router=p.router,
+                                 shared=getattr(p, "shared", None))
+    for name in ("w_gate", "w_up", "w_down"):
+        w = getattr(p, name)
+        if w.shape[0] == cfg.n_experts:
+            w = w[r * e_loc:(r + 1) * e_loc]
+        elif w.shape[0] != e_loc:
+            raise ValueError(f"{name} holds {w.shape[0]} experts: expected "
+                             f"{cfg.n_experts} or this rank's {e_loc}")
+        setattr(view, name, w)
+    return view
 
 
 def _stable_topk(x: torch.Tensor, k: int) -> tuple[torch.Tensor,
@@ -108,10 +146,9 @@ def moe_apply_local(p: MoE, xf: torch.Tensor, cfg, *, experts_slice=None,
 
     ``experts_slice`` = (start, count): the experts this caller owns (all
     by default); ``p``'s expert weights are those ``count`` experts'.  Each
-    token's contributions are added in expert order."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            "expert parallelism over a mesh axis is not ported yet")
+    token's contributions are added in expert order.  ``axis_name``, the
+    expert-parallel group, is the caller's to reduce over (``moe_ep``), as
+    in the JAX package."""
     t, d = xf.shape
     probs, gates, eidx = _route(p.router, xf, cfg.moe_top_k)
     cap = capacity(t, cfg)
@@ -149,3 +186,56 @@ def moe_dense(p: MoE, x: torch.Tensor, cfg) -> torch.Tensor:
     if cfg.n_shared_experts > 0:
         out = out + layers.mlp(p.shared, xf).float()
     return out.reshape(b, s, d).to(x.dtype)
+
+
+def moe_ep_a2a(p, x: torch.Tensor, cfg, *, axis_name) -> torch.Tensor:
+    """Expert-parallel MoE with all-to-all send-buffer dispatch.  x is this
+    rank's tokens [T_loc, d]; ``p`` has this rank's experts
+    (``local_experts``).  Each rank packs, for every expert, the capacity
+    of its own tokens routed there, sends each destination rank its
+    experts' buffers (bf16) and gets back their outputs."""
+    t_loc, d = x.shape
+    n_ranks = axis_size(axis_name)
+    e_total = cfg.n_experts
+    e_loc = e_total // n_ranks
+    probs, gates, eidx = _route(p.router, x, cfg.moe_top_k)
+    cap = capacity(t_loc, cfg)
+    token_idx, gate, valid = _select_for_experts(
+        probs, gates, eidx, torch.arange(e_total, device=x.device), cap)
+    send = (x[token_idx.reshape(-1)].reshape(e_total, cap, d)
+            * valid[..., None]).to(torch.bfloat16)
+    recv = collectives.all_to_all(send.reshape(n_ranks * e_loc * cap, d),
+                                  axis_name)
+    # group received tokens by local expert: [e_loc, n_ranks*cap, d]
+    grouped = (recv.reshape(n_ranks, e_loc, cap, d).transpose(0, 1)
+               .reshape(e_loc, n_ranks * cap, d))
+    y = _expert_ffn(p.w_gate, p.w_up, p.w_down,
+                    grouped.to(p.w_gate.dtype))     # [e_loc, n*cap, d]
+    back = (y.reshape(e_loc, n_ranks, cap, d).transpose(0, 1)
+            .reshape(n_ranks * e_loc * cap, d).to(torch.bfloat16))
+    y_mine = collectives.all_to_all(back, axis_name).reshape(
+        e_total, cap, d).float()
+    out = torch.zeros((t_loc, d), dtype=torch.float32, device=x.device)
+    out = out.index_add(0, token_idx.reshape(-1),
+                        (y_mine * (gate * valid)[..., None]).reshape(-1, d))
+    if cfg.n_shared_experts > 0:
+        out = out + layers.mlp(p.shared, x).float()
+    return out.to(x.dtype)
+
+
+def moe_ep(p, x: torch.Tensor, cfg, *, axis_name) -> torch.Tensor:
+    """Expert-parallel MoE.  x is this rank's tokens [T_loc, d]; ``p`` has
+    this rank's experts (``local_experts``), the router replicated.
+    All-gather the tokens over ``axis_name``, compute the local experts,
+    reduce-scatter the contributions back."""
+    n_ranks = axis_size(axis_name)
+    rank = collectives.rank(axis_name)
+    e_loc = cfg.n_experts // n_ranks
+    x_all = collectives.all_gather(x.float(), axis_name)     # [T_glob, d]
+    out_all = moe_apply_local(p, x_all, cfg,
+                              experts_slice=(rank * e_loc, e_loc),
+                              axis_name=axis_name)
+    out = collectives.reduce_scatter(out_all, axis_name)     # [T_loc, d]
+    if cfg.n_shared_experts > 0:
+        out = out + layers.mlp(p.shared, x).float()
+    return out.to(x.dtype)

@@ -21,20 +21,101 @@ keeps an exact ring buffer of ``min(s_max, sliding_window)`` slots, with or
 without ``agg_kv``.  A Mamba2 block's cache is its conv windows and state,
 an xLSTM block's its recurrent state.  Decode updates a cache in place and
 returns it.
+
+``ParallelContext`` says how a block uses a mesh (``NO_PARALLEL``: one
+device).  Under an active context a block's activations are this rank's
+block of the batch over the data axes, replicated over the model axis, and
+the JAX package's GSPMD placements become explicit collectives
+(``parallel.collectives``):
+
+  * attention whose projections hold this rank's heads only (a sharded
+    train step's weights, ``parallel.sharding.local_views``) runs those
+    heads and sums the output projection's parts over the model axis; an
+    MLP whose hidden width is this rank's slice likewise;
+  * with ``use_ep`` an MoE block runs its experts over the model axis
+    (``_moe_ep_local``: the sequence-sharded ``moe_ep`` / ``moe_ep_a2a``
+    arm, or the decode arm's replicated tokens and summed experts);
+    ``_moe_ep_sharded`` is the same on a whole ``[B, S, d]``, as the JAX
+    package's ``shard_map`` takes it.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
+from typing import Any
 
 import torch
 from torch import nn
 
 from repro_torch.models import aggregated_kv, layers, mla, moe, ssm, xlstm
+from repro_torch.parallel import collectives
 
 ATTN_KINDS = ("attn", "attn_local", "attn_global", "shared_attn")
 MIXERS = {"mamba": (ssm.mamba_init, ssm.mamba_block),
           "mlstm": (xlstm.mlstm_init, xlstm.mlstm_block),
           "slstm": (xlstm.slstm_init, xlstm.slstm_block)}
+
+
+@dataclasses.dataclass(frozen=True)
+class ParallelContext:
+    """How model code uses the mesh (a ``DeviceMesh``; None = one
+    device)."""
+
+    mesh: Any = None
+    data_axes: tuple = ("data",)
+    model_axis: str = "model"
+    use_ep: bool = False             # expert-parallel MoE over model
+    seq_shard_moe: bool = True       # slice sequence over model axis in MoE
+    pure_dp: bool = False            # model axis folded into data (xlstm)
+
+    @property
+    def active(self) -> bool:
+        return self.mesh is not None
+
+    def size(self, axis: str) -> int:
+        return self.mesh.shape[self.mesh.mesh_dim_names.index(axis)]
+
+    def group(self, axis: str):
+        return self.mesh.get_group(axis)
+
+    @property
+    def batch_axes(self) -> tuple:
+        """The mesh axes the batch is sharded over, in mesh order."""
+        if self.pure_dp:
+            return tuple(self.mesh.mesh_dim_names)
+        return tuple(a for a in self.mesh.mesh_dim_names
+                     if a in self.data_axes)
+
+    @property
+    def data_size(self) -> int:
+        return math.prod(self.size(a) for a in self.batch_axes)
+
+    @property
+    def tp_group(self):
+        """The model axis's group where it splits work, else None."""
+        if not self.active or self.pure_dp or self.size(self.model_axis) < 2:
+            return None
+        return self.group(self.model_axis)
+
+
+NO_PARALLEL = ParallelContext()
+
+
+def data_slice(x: torch.Tensor, parallel: ParallelContext,
+               dim: int = 0) -> torch.Tensor:
+    """This rank's block of ``dim`` of a tensor replicated over the mesh,
+    over the batch axes (the first outermost); differentiable."""
+    for axis in parallel.batch_axes:
+        x = collectives.scatter_replicated(x, parallel.group(axis), dim)
+    return x
+
+
+def data_gather(x: torch.Tensor, parallel: ParallelContext,
+                dim: int = 0) -> torch.Tensor:
+    """The inverse of ``data_slice``: the whole of ``dim`` on every rank."""
+    for axis in reversed(parallel.batch_axes):
+        x = collectives.gather_replicated(x, parallel.group(axis), dim)
+    return x
 
 
 def _block_has_moe(cfg, *, is_head: bool) -> bool:
@@ -95,25 +176,101 @@ def block_init(init: layers.Init, cfg, kind: str, *,
     return Block(init, cfg, kind, is_head=is_head)
 
 
-def _ffn_apply(p: Block, x: torch.Tensor, cfg) -> torch.Tensor:
+def _ffn_apply(p: Block, x: torch.Tensor, cfg,
+               parallel: ParallelContext = NO_PARALLEL) -> torch.Tensor:
     if hasattr(p, "moe"):
         h = layers.rmsnorm(x, p.norm2, cfg.norm_eps)
+        if parallel.active and parallel.use_ep:
+            return x + _moe_ep_local(p.moe, h, cfg, parallel)
         return x + moe.moe_dense(p.moe, h, cfg)
     if hasattr(p, "mlp"):
         h = layers.rmsnorm(x, p.norm2, cfg.norm_eps)
         ffn = layers.gelu_mlp if cfg.is_encoder_decoder else layers.mlp
+        g = parallel.tp_group
+        if g is not None and p.mlp.w_up.shape[1] != cfg.d_ff:
+            # this rank's slice of the hidden width: its part of the output
+            return x + collectives.reduce_from(
+                ffn(p.mlp, collectives.copy_to(h, g)), g)
         return x + ffn(p.mlp, h)
     return x
 
 
+def _moe_ep_local(pm, x: torch.Tensor, cfg,
+                  parallel: ParallelContext) -> torch.Tensor:
+    """Expert-parallel MoE over the model axis on this rank's block of the
+    batch [B, S, d] (replicated over the model axis): where the sequence
+    divides by the axis, each rank's slice of it through ``moe_ep`` (or
+    ``moe_ep_a2a`` under ``moe_dispatch="all_to_all"``), gathered back;
+    otherwise (decode) every rank computes its experts over all the tokens
+    and the parts are summed."""
+    g = parallel.group(parallel.model_axis)
+    tp = parallel.size(parallel.model_axis)
+    local = moe.local_experts(pm, cfg, g)
+    b, s, d = x.shape
+    if parallel.seq_shard_moe and s % tp == 0 and s >= tp:
+        ep_fn = (moe.moe_ep_a2a if cfg.moe_dispatch == "all_to_all"
+                 else moe.moe_ep)
+        xl = collectives.scatter_replicated(x, g, dim=1)
+        out = ep_fn(local, xl.reshape(-1, d), cfg, axis_name=g)
+        return collectives.gather_replicated(out.reshape(xl.shape), g, dim=1)
+    flat = collectives.copy_to(x.reshape(b * s, d), g)
+    e_loc = cfg.n_experts // tp
+    out = moe.moe_apply_local(
+        local, flat.float(), cfg,
+        experts_slice=(collectives.rank(g) * e_loc, e_loc))
+    if cfg.n_shared_experts > 0 and collectives.rank(g) == 0:
+        # the shared experts once, in the first rank's part: every rank's
+        # part is then its own (the router's, the shared weights' gradient
+        # summed over the axis, as in the sequence arm)
+        out = out + layers.mlp(local.shared, flat).float()
+    return collectives.reduce_from(out, g).reshape(b, s, d).to(x.dtype)
+
+
+def _moe_ep_sharded(pm, x: torch.Tensor, cfg,
+                    parallel: ParallelContext) -> torch.Tensor:
+    """Expert-parallel MoE on a whole [B, S, d] (the same on every rank),
+    returning the whole output as ``moe_dense`` does: this rank's block of
+    the batch over the data axes through ``_moe_ep_local``, gathered back.
+    A batch that does not divide (decode at batch 1) is replicated over the
+    data axes as well; the sequence arm then has no block to give and
+    raises, as ``shard_map`` does."""
+    b, s, _ = x.shape
+    dsz = parallel.data_size
+    if b % dsz == 0 and b >= dsz:
+        return data_gather(_moe_ep_local(pm, data_slice(x, parallel), cfg,
+                                         parallel), parallel)
+    tp = parallel.size(parallel.model_axis)
+    if parallel.seq_shard_moe and s % tp == 0 and s >= tp:
+        raise ValueError(f"shard_map: batch {b} does not divide by the data "
+                         f"axes' {dsz} ranks")
+    return _moe_ep_local(pm, x, cfg, parallel)
+
+
+def _attention(p: Block, h: torch.Tensor, cfg, parallel: ParallelContext,
+               **kw) -> torch.Tensor:
+    """Full-sequence GQA attention; projections that hold this rank's heads
+    only run those heads (under a config with the local head counts) and
+    sum the output projection's parts over the model axis."""
+    g = parallel.tp_group
+    if g is None or p.attn.wq.shape[-1] == cfg.n_heads * cfg.head_dim:
+        return layers.attention(p.attn, h, cfg, **kw)
+    tp = collectives.size(g)
+    local_cfg = cfg.with_(n_heads=cfg.n_heads // tp,
+                          n_kv_heads=cfg.n_kv_heads // tp)
+    out = layers.attention(p.attn, collectives.copy_to(h, g), local_cfg, **kw)
+    return collectives.reduce_from(out, g)
+
+
 def block_apply(p: Block, x: torch.Tensor, cfg, kind: str, *,
                 positions: torch.Tensor, causal: bool = True,
+                parallel: ParallelContext = NO_PARALLEL,
                 mrope_positions: torch.Tensor | None = None,
                 memory: torch.Tensor | None = None) -> torch.Tensor:
     """Full-sequence application of one block (train / prefill).  x
     [B,S,d]; positions [B,S]; ``mrope_positions`` [3,B,S]; ``memory``
     [B,T,d] the encoder's output, which an encoder-decoder block attends
-    to after its self-attention."""
+    to after its self-attention.  Under an active ``parallel`` x is this
+    rank's block of the batch (module docstring)."""
     h = layers.rmsnorm(x, p.norm1, cfg.norm_eps)
     if kind in MIXERS:
         return x + MIXERS[kind][1](p.mixer, h, cfg)
@@ -122,8 +279,8 @@ def block_apply(p: Block, x: torch.Tensor, cfg, kind: str, *,
     if cfg.mla:
         a = mla.mla_attention(p.attn, h, cfg, positions=positions)
     else:
-        a = layers.attention(
-            p.attn, h, cfg, positions=positions, causal=causal,
+        a = _attention(
+            p, h, cfg, parallel, positions=positions, causal=causal,
             window=cfg.sliding_window if is_ring(cfg, kind) else None,
             mrope_positions=mrope_positions)
     x = x + a
@@ -131,7 +288,7 @@ def block_apply(p: Block, x: torch.Tensor, cfg, kind: str, *,
         x = x + layers.cross_attention(
             p.cross, layers.rmsnorm(x, p.cross_norm, cfg.norm_eps), memory,
             cfg)
-    return _ffn_apply(p, x, cfg)
+    return _ffn_apply(p, x, cfg, parallel)
 
 
 def cache_dims(cfg) -> tuple[int, int, int]:
@@ -223,7 +380,8 @@ def _attn_decode_aggkv(p: Block, h: torch.Tensor, cfg, cache, pos,
 
 
 def block_decode(p: Block, x: torch.Tensor, cfg, kind: str, cache, pos,
-                 rotation=None, *, mrope_positions=None, memory_kv=None):
+                 rotation=None, *, parallel: ParallelContext = NO_PARALLEL,
+                 mrope_positions=None, memory_kv=None):
     """One decode step.  x [B,1,d]; pos [B]; ``rotation`` the step's
     standard RoPE (cos, sin) over ``rope_dim(cfg)`` when the caller has it;
     ``mrope_positions`` [3,B,1] (the exact attention path rotates by them,
@@ -256,7 +414,7 @@ def block_decode(p: Block, x: torch.Tensor, cfg, kind: str, cache, pos,
     if memory_kv is not None and hasattr(p, "cross"):
         x = x + _cross_decode(p, layers.rmsnorm(x, p.cross_norm,
                                                 cfg.norm_eps), memory_kv, cfg)
-    return _ffn_apply(p, x, cfg), cache
+    return _ffn_apply(p, x, cfg, parallel), cache
 
 
 def _cross_decode(p: Block, h: torch.Tensor, memory_kv, cfg) -> torch.Tensor:

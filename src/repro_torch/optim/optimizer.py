@@ -70,7 +70,7 @@ def global_norm(tree: Any) -> torch.Tensor:
 @torch.no_grad()
 def apply_updates(
     params: Any, grads: Any, state: AdamState, cfg: AdamWConfig,
-    decayed: Any = None,
+    decayed: Any = None, gnorm: torch.Tensor | None = None,
 ) -> tuple[Any, AdamState]:
     """One AdamW step with global-norm clipping, written over ``params`` and
     ``state``'s moments in place (as ``torch.optim`` does, and as a jitted
@@ -79,8 +79,11 @@ def apply_updates(
     ``decayed``, a tree like ``params`` of bools, says which leaves get
     the weight decay; by default those with ``ndim >= 2``, as in the JAX
     package (for an ``LM``, ``convert.lm_decayed`` says which leaves the
-    JAX package's own tree decays).  Returns (params, the new state)."""
-    gnorm = global_norm(grads)
+    JAX package's own tree decays).  ``gnorm``: the gradient's global
+    norm where the caller holds only shards of it (a sharded step), else
+    computed here.  Returns (params, the new state)."""
+    if gnorm is None:
+        gnorm = global_norm(grads)
     clip = torch.clamp_max(cfg.grad_clip / torch.clamp_min(gnorm, 1e-9), 1.0)
     step = state.step + 1
     lr = schedule(cfg, step)

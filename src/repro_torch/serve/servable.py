@@ -125,6 +125,18 @@ class LSHServableBase:
     def last_shuffle_bytes(self) -> int:
         return self.engine.last_shuffle_bytes
 
+    def check_stage2(self, refine_budget: int) -> None:
+        """Refuse stage 2 on a mesh engine.  The prepared level indexes the
+        servable's whole rows, while a mesh engine maps each rank's slice of
+        them: the refinement's row ids would point past the slice (the JAX
+        package gathers them clamped, the port's kernels would read out of
+        bounds).  Stage 1 reads the level alone and runs on a mesh."""
+        if self.engine.mesh is not None and refine_budget > 0:
+            raise ValueError(
+                f"{self.name}: stage 2 (refine_budget {refine_budget}) on a "
+                "mesh engine would index the whole shard's rows from each "
+                "rank's slice; serve a mesh with one servable a rank")
+
     def _lsh_config(self, compression_ratio: float) -> lsh_lib.LSHConfig:
         """Nested config at the pyramid level nearest the requested ratio."""
         spec = self.pyramid_spec

@@ -163,7 +163,13 @@ class Server:
         run, the wait for the card, ``unpack`` (the copy of the answers to
         the host) and ``error_bounds`` where the servable has them, under a
         scratch tracer of the server's kind, so that a run pays for the
-        engine's spans as a served one does.
+        engine's spans as a served one does.  Every pass's answers are held
+        until the fit, as a served batch's responses hold theirs, so that
+        each pass copies its answers into host memory no earlier pass has
+        just freed, as a served batch does: passes that dropped their
+        answers priced CF's batches (4.5 MB of predictions a pass) under
+        their window, and the load correction that followed escalated the
+        relaxed class.
 
         The rest of a served batch's window, outside those passes, is timed
         too and fitted into ``c_fixed``: the batch's spans (its root, a wait
@@ -190,13 +196,14 @@ class Server:
             else NULL_TRACER
         proxy_fn = getattr(servable, "accuracy_proxy", None)
         outs: dict[int, Any] = {}
+        answers: list[Any] = []
 
         def served_pass(refine_budget: int) -> None:
             padded = servable.pad_batch(payloads, n_pad)
             out = block_until_ready(
                 servable.run(prepared, padded, refine_budget=refine_budget)
             )
-            servable.unpack(out, n_pad)
+            answers.append(servable.unpack(out, n_pad))
             if bounds_fn is not None:
                 bounds_fn(out, n_pad)
             outs[refine_budget] = out

@@ -400,9 +400,28 @@ def test_mapreduce_spans_under_a_tracer():
                                                "shuffle_bytes": 24}
 
 
+class _Mesh:
+    """A stand-in for a (4,) ``data`` DeviceMesh: the engine reads its
+    axis before any collective."""
+
+    mesh_dim_names = ("data",)
+    shape = (4,)
+
+    def get_group(self, axis):
+        return None
+
+    def get_local_rank(self, dim):
+        return 0
+
+
 def test_mapreduce_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="mesh=None"):
-        engine.MapReduce(mesh=object())
+    """A mesh whose axis does not divide a sharded argument's leading
+    dimension is refused, as ``shard_map`` refuses it (the mesh path
+    itself: tests/test_torch_parallel.py)."""
+    eng = engine.MapReduce(mesh=_Mesh())
+    assert eng.mesh is not None and eng.axis == "data"
+    with pytest.raises(ValueError, match="does not divide by the 'data'"):
+        eng.run(lambda a: a, engine.CombineSpec("psum"), torch.zeros(6, 2))
 
 
 # ---------------------------------------------------------------------------

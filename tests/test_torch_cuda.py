@@ -1158,3 +1158,57 @@ def test_cuda_checkpoint_roundtrip_with_bf16_leaves(cuda, tmp_path):
     assert torch.equal(emb.view(torch.int16), want[0].view(torch.int16))
     assert torch.equal(w, want[1])
     assert int(restored["opt"].step) == 5
+
+
+# ---------------------------------------------------------------------------
+# the mesh path: 2 ranks on the card under gloo
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def card_world():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    import _torch_mesh_ranks
+    from repro_torch.launch.mesh import run_ranks
+
+    r = rng(60)
+    x, y = normal(r, 20_000, 217), r.integers(0, 10, 20_000).astype(np.int32)
+    q, moe_x = normal(r, 64, 217), normal(r, 32, 64)
+    args = (th(x), th(y), th(q), 5, th(moe_x))
+    return args, run_ranks(_torch_mesh_ranks.card_world, 2, *args,
+                           timeout=600)
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_knn_merge_equals_single_device_to_the_bit(card_world):
+    """Two ranks' merge on the kernels gives ``MapReduce(mesh=None)``'s
+    two stacked shards merged, to the bit, and meters their bytes."""
+    from repro_torch.apps import knn
+    from repro_torch.core import engine
+
+    (x, y, q, k, _), results = card_world
+    dev = torch.device("cuda")
+    x, y, q = x.to(dev), y.to(dev), q.to(dev)
+    outs, nbytes = [], 0
+    for s in range(2):
+        eng = engine.MapReduce()
+        rows = slice(s * 10_000, (s + 1) * 10_000)
+        outs.append(eng.run(lambda a, b: knn.exact_map(a, b, q, k=k),
+                            engine.CombineSpec("all_gather"), x[rows],
+                            y[rows]))
+        nbytes += eng.last_shuffle_bytes
+    d, lab = knn.merge_topk(torch.cat([o[0] for o in outs]),
+                            torch.cat([o[1] for o in outs]), k)
+    for got in results:
+        assert torch.equal(got["d"], d.cpu())
+        assert torch.equal(got["l"], lab.cpu())
+        assert got["shuffle"] == nbytes
+        assert got["counts"]["distance_topk"] == 1
+        assert got["counts"]["candidate_topk"] == 1
+
+
+@pytest.mark.cuda
+def test_cuda_moe_ep_equals_moe_dense(card_world):
+    _, results = card_world
+    for got in results:
+        assert_close(got["ep"], got["dense"], rtol=2e-4, atol=2e-4)

@@ -15,6 +15,7 @@ import pytest
 
 torch = pytest.importorskip("torch")  # the port's tests need PyTorch
 
+import _torch_mesh_ranks
 import repro_torch
 from repro_torch.apps import cf, knn
 from repro_torch.checkpoint import Checkpointer
@@ -26,6 +27,9 @@ from repro_torch.convert import (
 )
 from repro_torch.data.pipeline import TokenPipeline
 from repro_torch.launch import train
+from repro_torch.launch.mesh import (
+    make_host_mesh, make_production_mesh, run_ranks,
+)
 from repro_torch.optim import AdamState
 from repro_torch.runtime import sharded_knn
 from repro_torch.core import lsh
@@ -60,7 +64,9 @@ def test_every_module_imports_without_jax_or_the_reference():
               "tree", "checkpoint", "checkpoint.checkpoint", "runtime",
               "runtime.chaos", "runtime.fault_tolerance", "runtime.shards",
               "optim", "optim.optimizer", "optim.grad_compression",
-              "data.pipeline", "launch", "launch.train"):
+              "data.pipeline", "launch", "launch.train", "launch.mesh",
+              "parallel", "parallel.collectives", "parallel.sharding",
+              "parallel.pipeline_parallel"):
         assert f"repro_torch.{m}" in modules
     code = (
         "import importlib, sys\n"
@@ -245,6 +251,9 @@ def _entry_points():
         "knn_aggregates_from_numpy": lambda **kw: knn_aggregates_from_numpy(
             np.zeros((4, 3)), np.zeros(4), np.arange(20), np.zeros(5),
             np.zeros(20), np.zeros(4), np.zeros(4), np.zeros(4), **kw),
+        "launch.mesh.run_ranks": lambda **kw: run_ranks(
+            _torch_mesh_ranks.host_mesh, 1, {"device": "cpu"}, timeout=120,
+            **kw),
     }
 
 
@@ -279,6 +288,22 @@ def _tensors(out):
     elif dataclasses.is_dataclass(out):
         for f in dataclasses.fields(out):
             yield from _tensors(getattr(out, f.name))
+
+
+def test_meshes_take_the_card_unless_asked_for_the_cpu(no_cuda):
+    """``make_host_mesh`` and ``make_production_mesh`` build on the card by
+    default and raise where there is none; a rank of ``run_ranks`` does
+    likewise, and with ``device="cpu"`` builds a CPU mesh."""
+    for make in (make_host_mesh, make_production_mesh):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_ranks(_torch_mesh_ranks.host_mesh, 1, {}, device="cpu",
+                  timeout=120)
+    [(shape, kind)] = run_ranks(_torch_mesh_ranks.host_mesh, 1,
+                                {"device": "cpu"}, device="cpu",
+                                timeout=120)
+    assert kind == "cpu" and shape.tolist() == [1]
 
 
 def test_chip_smoke_refuses_to_run_without_a_card_or_the_repo(tmp_path):

@@ -271,14 +271,42 @@ def test_formerly_unported_block_kinds_build_apply_and_decode(over, kind):
 
 
 def test_what_stays_unported_still_raises():
-    """Expert parallelism over a mesh axis waits for ``parallel/``."""
-    from repro_torch.models import moe
+    """What the mesh path leaves out raises before any collective: a
+    sharded train step with top-k gradient compression (the JAX package
+    selects over whole stacked tensors, which no rank holds), a sharded
+    step over parameters that were not placed, and stage 2 of a servable
+    on a mesh engine (ROADMAP queue 3).  The mesh stands in for a
+    ``DeviceMesh``; the mesh path itself: tests/test_torch_parallel.py."""
+    from repro_torch import optim
+    from repro_torch.apps import knn
+    from repro_torch.core import engine
+    from repro_torch.launch import train
+    from repro_torch.models.transformer import ParallelContext
+
+    class Mesh:
+        mesh_dim_names = ("data", "model")
+        shape = (2, 2)
 
     cfg = get_config("moonshot-v1-16b-a3b", smoke=True)
+    ctx = ParallelContext(mesh=Mesh(), use_ep=True)
+    with pytest.raises(ValueError, match="compression"):
+        train.make_train_step(cfg, optim.AdamWConfig(), ctx,
+                              grad_compress_frac=0.1)
     model = model_lib.init_params(cfg, torch.Generator(), device="cpu")
-    x = torch.zeros(4, cfg.d_model)
-    with pytest.raises(NotImplementedError):
-        moe.moe_apply_local(model.blocks[1].moe, x, cfg, axis_name="model")
+    step = train.make_train_step(cfg, optim.AdamWConfig(), ctx)
+    batch = train.synth_batch(torch.Generator(), cfg, batch=2, seq=4,
+                              device="cpu")
+    with pytest.raises(ValueError, match="place_params"):
+        step(model, optim.init_state(model_lib.param_tree(model)), batch)
+    x = torch.randn(40, 3, generator=torch.Generator().manual_seed(0))
+    servable = knn.KNNServable(x, torch.zeros(40, dtype=torch.int32),
+                               n_classes=2, k=3,
+                               lsh_generator=torch.Generator(),
+                               engine=engine.MapReduce(Mesh()),
+                               device="cpu")
+    prepared = servable.build(5.0)
+    with pytest.raises(ValueError, match="stage 2"):
+        servable.run(prepared, (x[:2],), refine_budget=4)
 
 
 def test_chip_smoke_moe_phase_runs_on_the_cpu(monkeypatch):

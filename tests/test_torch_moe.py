@@ -168,11 +168,30 @@ def test_moe_apply_local_expert_slice_matches_reference():
                                atol=TOL)
 
 
-def test_moe_apply_local_refuses_a_mesh_axis():
+def test_moe_apply_local_refuses_a_mesh_axis(tmp_path):
+    """Given an expert-parallel axis, ``moe_apply_local`` computes what it
+    does without one (the caller reduces over the axis, as in the JAX
+    package), and ``local_experts`` refuses expert weights that are
+    neither all the experts nor this rank's share.  A one-rank gloo world
+    stands in for the axis (the mesh path: tests/test_torch_parallel.py)."""
+    import torch.distributed as dist
+
     _, cfg, _, m, x = _moe_case("moonshot-v1-16b-a3b", 9, 4)
-    with pytest.raises(NotImplementedError):
-        moe.moe_apply_local(m, th(x).reshape(-1, cfg.d_model), cfg,
-                            axis_name="model")
+    xf = th(x).reshape(-1, cfg.d_model)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        group = dist.group.WORLD
+        assert moe.axis_size(group) == 1
+        local = moe.local_experts(m, cfg, group)
+        assert torch.equal(moe.moe_apply_local(local, xf, cfg,
+                                               axis_name=group),
+                           moe.moe_apply_local(m, xf, cfg))
+        local.w_gate = local.w_gate[:-1]
+        with pytest.raises(ValueError, match="experts"):
+            moe.local_experts(local, cfg, group)
+    finally:
+        dist.destroy_process_group()
 
 
 def test_bf16_experts_accumulate_in_float32():

@@ -589,6 +589,45 @@ def test_calibrate_probes_a_full_batch_of_real_rows(knn_servable,
             assert all(torch.equal(row, torch.as_tensor(w)) for row in col)
 
 
+@pytest.mark.parametrize("kind", ["knn", "cf"])
+def test_calibrate_holds_every_pass_answers_until_the_fit(
+        knn_servable, cf_servable, kind, monkeypatch):
+    """Each of ``calibrate``'s passes keeps its unpacked answers until the
+    fit, as a served batch's responses keep theirs, so that no pass copies
+    its answers into memory the pass before it has just freed; they are
+    let go once the model is fitted."""
+    import gc
+    import weakref
+
+    fresh = (_fresh_knn(knn_servable) if kind == "knn" else
+             _cf(cf_servable.ratings, cf_servable.mask))
+    unpack, answers = fresh.unpack, []
+
+    class Answers(list):
+        pass
+
+    def unpacking(outputs, n):
+        got = Answers(unpack(outputs, n))
+        answers.append(weakref.ref(got))
+        return got
+
+    fresh.unpack = unpacking
+    server = Server([fresh], controller=_controller())
+    alive_at_fit = []
+    fit = server.controller.fit_from_probes
+
+    def fitting(*args, **kwargs):
+        gc.collect()
+        alive_at_fit.append([a() is not None for a in answers])
+        return fit(*args, **kwargs)
+
+    monkeypatch.setattr(server.controller, "fit_from_probes", fitting)
+    server.calibrate(kind, batch=4)
+    assert alive_at_fit == [[True] * 2 * (1 + server_mod.CALIBRATE_RUNS)]
+    gc.collect()
+    assert all(a() is None for a in answers)
+
+
 def test_knn_accuracy_proxy_is_the_reference_label_overlap(knn_servable):
     """kNN's accuracy proxy, counted on the outputs' device, equals the JAX
     package's label-multiset overlap per query, padding slots (distance at
@@ -1196,7 +1235,8 @@ def test_chip_smoke_slo_deadlines_stay_in_one_batcher_class(power):
 
 
 @pytest.mark.parametrize("variant", ["as-is", "no-host-term", "no-turns",
-                                     "no-gc-guard", "no-class-margin"])
+                                     "no-gc-guard", "no-class-margin",
+                                     "no-held-answers"])
 def test_serve_relaxed_tool_serves_each_variant_on_the_cpu(monkeypatch,
                                                              variant):
     """``tools/torch_serve_relaxed.py``'s serving at a small size, with
@@ -1221,19 +1261,25 @@ def test_serve_relaxed_tool_serves_each_variant_on_the_cpu(monkeypatch,
     spec.loader.exec_module(tool)
     assert set(tool.VARIANTS) == {
         "as-is", "no-host-term", "no-turns", "no-gc-guard",
-        "no-class-margin"}
+        "no-class-margin", "no-held-answers"}
     plain_kernels(monkeypatch)
     x, y = make_mfeat_like(_gen(0), n_points=8192 + 256, n_features=16,
                            n_classes=10, device="cpu")
-    before = {(m, a): getattr(sys.modules[m], a)
-              for m, a, _ in sum(tool.VARIANTS.values(), [])
-              if m in sys.modules}
+
+    def owner(name):
+        module, _, cls = name.partition(":")
+        mod = sys.modules[module]
+        return getattr(mod, cls) if cls else mod
+
     fitted = []
     monkeypatch.setattr(server_mod.Server, "calibrate", (
         lambda calibrate: lambda self, kind, **kw: (
             calibrate(self, kind, **kw),
             fitted.append(self.controller.models[kind]))[0])(
         server_mod.Server.calibrate))
+    before = {(m, a): getattr(owner(m), a)
+              for m, a, _ in sum(tool.VARIANTS.values(), [])
+              if m.partition(":")[0] in sys.modules}
     restore = tool.patched(variant)
     try:
         r = tool.serving(torch, cs, knn, (x[256:], y[256:], x[:256]),
@@ -1241,9 +1287,53 @@ def test_serve_relaxed_tool_serves_each_variant_on_the_cpu(monkeypatch,
     finally:
         restore()
     for (m, a), v in before.items():
-        assert getattr(sys.modules[m], a) is v
+        assert getattr(owner(m), a) is v
     assert set(r) >= {"ok", "eps", "escalated", "correction", "model", "gc",
                       "batches", "wait", "cut"}
     assert r["batches"] >= cs.SERVE_WAVES
     (model,) = fitted
     assert (model.c_fixed == 0.0) == (variant == "no-host-term")
+
+
+def test_serve_relaxed_tool_serves_cf_on_the_cpu(monkeypatch):
+    """``tools/torch_serve_relaxed.py --kind cf --keep``'s serving at a small
+    size, with counting plain versions in place of the kernels: the check
+    is CF's (no relaxed escalation), every batch after calibration is
+    listed with its class and its window in parts, the first serving's
+    pass and copy times are there, and ``keep`` holds the responses."""
+    import importlib.util
+    import sys
+    from pathlib import Path
+
+    from _torch_parity import plain_kernels
+    from repro_torch.apps import cf
+    from repro_torch.data.synthetic import make_netflix_like
+
+    root = Path(__file__).resolve().parent.parent
+    sys.path.insert(0, str(root))
+    import chip_smoke as cs
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_serve_relaxed", root / "tools" / "torch_serve_relaxed.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    plain_kernels(monkeypatch)
+    r, m = make_netflix_like(_gen(1), n_users=1024 + 256, n_items=200,
+                             density=0.05, device="cpu")
+    data = (r[256:], m[256:], r[:256], m[:256])
+    kept = []
+    out = tool.serving(torch, cs, cf, data,
+                       [(r[i], m[i]) for i in range(256)], "cf", costs=True,
+                       keep=kept)
+    assert out["ok"] == (out["escalated"] == 0)
+    classes = [c for c, *_ in out["seq"]]
+    assert set(classes) == set(cs.SERVE_CLASSES["cf"])
+    assert len(classes) >= 2 * cs.SERVE_WAVES
+    for _, corr, eps, ratio, parts in out["seq"]:
+        assert corr > 0 and 0.0 <= eps <= 0.05 and len(parts) == 5
+        assert (ratio is None) == (parts[3] is None)
+    assert {k.split(" eps ")[0] for k in out["rows"]} == {"probe", "real"}
+    assert set(out["unpack"]) == {"unpack dropped", "unpack held",
+                                  "pinned dropped", "pinned held"}
+    (responses,) = kept
+    assert len(responses) >= 2 * cs.SERVE_WAVES * cs.SERVE_BATCH
