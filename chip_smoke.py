@@ -221,6 +221,20 @@ What it does, in order:
      bits.  It prints each job's time (the
      slowest rank's), the peak memory a rank, the card's name and power
      limit: 8 ranks time-sliced on one card, no multi-GPU figure;
+   * the eight examples (the examples phase, after the mesh phase): each
+     ``examples/torch_<name>.py`` by its ``main`` in this process on the
+     card at its defaults (the JAX package's examples' sizes;
+     ``torch_train_lm`` at 30 steps, the supervisor phase's cut), its
+     launches counted alone: each returns 0 with its own checks passing
+     and launches exactly the kernels of its ``EXAMPLES`` row (all seven
+     kNN and CF kernels for quickstart, serve_aggregated and
+     observe_serving, the three CF ones for cf_recommend, ``lsh_hash`` for
+     store_pyramid, the five kNN ones for chaos_serving,
+     ``distance_topk`` and ``agg_refine_attention`` for serve_lm_decode,
+     none for train_lm); their launches join the kernels line, and each
+     first call of every shape they give a kernel, the example's name in
+     its key, is held against its plain version with the others (step 3).
+     It prints each example's seconds and launches;
    * training, after the kernels are held (it runs none of them): qwen3-8b
      at its published widths, 2 layers deep (1.63 B parameters, bf16
      weights, f32 AdamW moments), ``make_train_step`` on 6
@@ -238,13 +252,29 @@ What it does, in order:
      the final state the uninterrupted run's bits, an async save that
      restores what it saved, a manifest that lists every leaf.  It
      prints checkpoint bytes, save and restore ms;
+   * the dry run (the dryrun phase, last): ``launch/dryrun.py``'s
+     ``run_all`` over all 80 cells (10 archs x 4 shapes x the 16 x 16 and
+     2 x 16 x 16 meshes; no files), then one device's blocks of every
+     argument of each cell's step allocated on the card, a cell at a
+     time (``allocate_on_card``; no kernel runs): each fits, and nothing
+     is left allocated after it.  Then the stand-ins against the tensors
+     the port allocates: for each arch at its published widths and a cut
+     depth (``cut_depth``: each kind of block kept), the train_4k,
+     decode_32k and long_500k cells' parameters, AdamW state and caches
+     built on the card (``build_cell``: ``init_params``,
+     ``optim.init_state``, ``init_caches``; at most 2 sequences), each
+     leaf's shape and dtype and each group's storage bytes equal to
+     ``cell_leaves``' on a mesh of one device (``compare_build``).  It
+     prints the cells, the largest cell's GiB a device, the bytes built
+     and the phase's seconds;
 3. holds each kernel against its plain PyTorch version (``kernels/ref.py``)
    on the very inputs the paths gave it, at every shape it was called with
    (the serve phase's: one batch of each kNN and CF wave held against a
    direct run, and the LM server's relaxed wave: the first call of each
    shape, prefill at B 1 and decode at B 2 at rf 0 and 0.25, with 64
    buckets over 1024 slots of which a few hold tokens; the moe and arch
-   phases' head shapes, each model, layout and level),
+   phases' head shapes, each model, layout and level; the examples'
+   shapes, which are checked and not timed),
    and times kernel, plain version and, where one PyTorch call computes the
    same function, that call (``library_ms``); ``distance_topk`` at each of
    its shapes: the kNN shapes (wide regime) and the LM's batched ones (B 4
@@ -256,7 +286,8 @@ What it does, in order:
    against the same functions run on the CPU, and that aggregation gives
    identical bits on two runs;
 5. prints the accuracies and RMSEs, a JSON line a phase (the fleet,
-   train and supervisor lines with the card's name and power limit), one
+   mesh, examples, train, supervisor and dryrun lines with the card's
+   name and power limit), one
    JSON line ``{"kernels": [...]}``, the card's name and power limit from
    nvidia-smi, and as its last line ``{"ok": true, "device": {...}}``.
 
@@ -3592,6 +3623,209 @@ def print_mesh(summary, smi):
 
 
 # ---------------------------------------------------------------------------
+# the examples and the dry run
+# ---------------------------------------------------------------------------
+
+# The kernels each of examples/torch_<name>.py launches on its path: all of
+# them and no other (PERF.md §6's "launched by" column).
+KNN_CF_KERNELS = KNN_KERNELS + CF_KERNELS[:2]
+EXAMPLES = {
+    "quickstart": KNN_CF_KERNELS,
+    "cf_recommend": CF_KERNELS,
+    "store_pyramid": ("lsh_hash",),
+    "serve_aggregated": KNN_CF_KERNELS,
+    "observe_serving": KNN_CF_KERNELS,
+    "chaos_serving": KNN_KERNELS,
+    "serve_lm_decode": ("distance_topk", "agg_refine_attention"),
+    "train_lm": (),
+}
+EXAMPLES_TRAIN_STEPS = SUP_STEPS        # the supervisor phase's cut
+DRYRUN_CELLS = 80                       # 10 archs x 4 shapes x 2 meshes
+# the cells built for real: parameters and AdamW state, exact caches and
+# aggregated ones (prefill's arguments are train's parameters)
+DRYRUN_BUILD_SHAPES = ("train_4k", "decode_32k", "long_500k")
+DRYRUN_BUILD_BATCH = 2
+
+
+class _Beneath:
+    """A probe that an example installs (observe_serving's KernelProbe),
+    with ``capture`` beneath it: each call passes through both."""
+
+    def __init__(self, outer, capture):
+        self.outer, self.capture = outer, capture
+
+    def timed(self, op, fn, args, kwargs):
+        return self.outer.timed(
+            op, lambda *a, **kw: self.capture.timed(op, fn, a, kw),
+            args, kwargs)
+
+
+def examples_phase(torch, ops, root, probe, *, dev="cuda", argv=None):
+    """The eight ``examples/torch_<name>.py``, each by its ``main`` in this
+    process on ``dev`` at its defaults (train_lm at EXAMPLES_TRAIN_STEPS,
+    observe_serving's exports and train_lm's checkpoints in a temporary
+    directory; ``argv``, {name: arguments}, adds to them), its standard
+    output kept and printed only if it fails.
+    Each must return 0 with its own checks passing, and launch exactly the
+    kernels of its EXAMPLES row (the counts set to 0 before each).
+    ``probe`` (a CaptureProbe) is installed for each, tagged with its name,
+    and stays beneath a probe the example installs itself.
+    Returns (summary, launch counts of the phase)."""
+    import contextlib
+    import io
+    import tempfile
+
+    sys.path.insert(0, str(root / "examples"))
+    import torch_cf_recommend
+    import torch_chaos_serving
+    import torch_observe_serving
+    import torch_quickstart
+    import torch_serve_aggregated
+    import torch_serve_lm_decode
+    import torch_store_pyramid
+    import torch_train_lm
+
+    mains = {"quickstart": torch_quickstart.main,
+             "cf_recommend": torch_cf_recommend.main,
+             "store_pyramid": torch_store_pyramid.main,
+             "serve_aggregated": torch_serve_aggregated.main,
+             "observe_serving": torch_observe_serving.main,
+             "chaos_serving": torch_chaos_serving.main,
+             "serve_lm_decode": torch_serve_lm_decode.main,
+             "train_lm": torch_train_lm.main}
+    if ops.get_probe() is not None:
+        fail("examples phase: a kernel probe is installed")
+    set_probe = ops.set_probe
+
+    def beneath(p):
+        set_probe(probe if p is None else _Beneath(p, probe))
+
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(ops.KERNELS, 0)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        extra = {"observe_serving": ["--out", f"{tmp}/obs"],
+                 "train_lm": ["--steps", str(EXAMPLES_TRAIN_STEPS),
+                              "--ckpt-dir", f"{tmp}/ckpt"]}
+        for name, kernels in EXAMPLES.items():
+            text = io.StringIO()
+            ops.reset_launch_counts()
+            torch.cuda.synchronize()
+            probe.tag = f"example {name}"
+            set_probe(probe)
+            ops.set_probe = beneath
+            t0 = time.perf_counter()
+            try:
+                with contextlib.redirect_stdout(text):
+                    rc = mains[name](["--device", dev, *extra.get(name, []),
+                                      *(argv or {}).get(name, [])])
+                torch.cuda.synchronize()
+            except BaseException:
+                print(text.getvalue())
+                raise
+            finally:
+                ops.set_probe = set_probe
+                set_probe(None)
+                probe.tag = None
+            seconds = time.perf_counter() - t0
+            counts = ops.launch_counts()
+            launched = {op: n for op, n in counts.items() if n}
+            if rc != 0:
+                print(text.getvalue())
+                fail(f"examples/torch_{name}.py returned {rc}")
+            if set(launched) != set(kernels):
+                fail(f"examples/torch_{name}.py launched {launched}, "
+                     f"expected each of {list(kernels)} and no other")
+            for op, n in counts.items():
+                total[op] += n
+            shapes = sum(key[0] == f"example {name}"
+                         for calls in probe.calls.values() for key in calls)
+            if kernels and not shapes:
+                fail(f"examples/torch_{name}.py: no kernel call captured")
+            last = text.getvalue().strip().splitlines()[-1]
+            out[name] = {"s": seconds, "launches": launched,
+                         "shapes_captured": shapes, "last_line": last[:200]}
+            print(f"example torch_{name}: {seconds:.1f} s, launches "
+                  f"{launched}, {shapes} shapes captured; {last[:120]}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out, total
+
+
+def dryrun_phase(torch, *, dev="cuda"):
+    """``launch/dryrun.py`` on every cell: ``run_all`` (no files), then one
+    device's blocks of each cell allocated on the card, one cell at a
+    time: each fits, and nothing is left allocated after it.  Then, for
+    each arch at a cut depth (``cut_depth``) and at most
+    DRYRUN_BUILD_BATCH sequences, the DRYRUN_BUILD_SHAPES cells' arguments
+    built on the card (``build_cell``) and held leaf by leaf, and by
+    storage bytes, against ``cell_leaves`` on one device
+    (``compare_build``)."""
+    from repro_torch.configs import ARCH_NAMES, SHAPES
+    from repro_torch.launch import dryrun
+
+    t_phase = time.perf_counter()
+    records = dryrun.run_all(save=False)
+    sweep_s = time.perf_counter() - t_phase
+    if len(records) != DRYRUN_CELLS:
+        fail(f"dryrun: {len(records)} cells, expected {DRYRUN_CELLS}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated(dev)
+    cells = []
+    for rec in records:
+        got = dryrun.allocate_on_card(rec["arch"], rec["shape"],
+                                      rec["mesh"] == "2x16x16", device=dev)
+        name = f"{rec['arch']} {rec['shape']} {rec['mesh']}"
+        if torch.cuda.memory_allocated(dev) != held:
+            fail(f"dryrun {name}: {torch.cuda.memory_allocated(dev) - held} "
+                 "bytes still allocated after the cell")
+        cells.append((got["bytes"], name, got))
+    top_bytes, top_name, top = max(cells, key=lambda c: c[0])
+    t_build = time.perf_counter()
+    built = {}
+    for arch in ARCH_NAMES:
+        for shape_name in DRYRUN_BUILD_SHAPES:
+            cfg = dryrun.cut_depth(dryrun.cell_config(arch, shape_name))
+            shape = SHAPES[shape_name]
+            shape = dataclasses.replace(shape, global_batch=min(
+                shape.global_batch, DRYRUN_BUILD_BATCH))
+            got = dryrun.compare_build(
+                cfg, shape, dryrun.build_cell(cfg, shape, device=dev))
+            gc.collect()
+            torch.cuda.empty_cache()
+            name = f"{arch} {shape_name} {cfg.n_layers} layers"
+            if got["mismatches"]:
+                fail(f"dryrun build {name}: {got['mismatches'][:5]}")
+            if got["bytes"] != got["counted"]:
+                fail(f"dryrun build {name}: storages {got['bytes']}, "
+                     f"counted {got['counted']}")
+            built[name] = sum(got["bytes"].values())
+    return {"cells": len(cells), "sweep_s": sweep_s,
+            "largest": {"cell": top_name, "gib": top_bytes / 2**30, **top},
+            "bytes_total": sum(c[0] for c in cells),
+            "allocated_total": sum(c[2]["allocated"] for c in cells),
+            "built": built, "build_s": time.perf_counter() - t_build,
+            "phase_s": time.perf_counter() - t_phase}
+
+
+def print_dryrun(summary, smi):
+    big = summary["largest"]
+    print(f"dryrun: {summary['cells']} cells, records in "
+          f"{summary['sweep_s']:.1f} s; every cell's blocks allocated on the "
+          f"card and freed; largest {big['cell']} {big['gib']:.2f} GiB a "
+          f"device; {len(summary['built'])} cut cells built on the card as "
+          f"counted, {sum(summary['built'].values()) / 2**30:.1f} GiB in "
+          f"{summary['build_s']:.1f} s; phase {summary['phase_s']:.1f} s; "
+          f"card: {smi}")
+
+
+def print_examples(summary, smi):
+    print(f"examples phase: {summary['phase_s']:.1f} s ("
+          + ", ".join(f"{k} {v['s']:.1f}" for k, v in summary.items()
+                      if k != "phase_s") + f" s); card: {smi}")
+
+
+# ---------------------------------------------------------------------------
 # the training path: qwen3-8b's widths, 2 layers, and the blockwise backward
 # ---------------------------------------------------------------------------
 
@@ -3874,13 +4108,17 @@ TOLS = {
 }
 
 
-def kernel_row(torch, ref, topk_stream, ops, op, calls, counts, jobs, flush):
-    """Check the kernel at every captured shape and time it at the shape
-    with the largest least time (lsh_hash, cf_weights, distance_topk and
-    the decode-attention kernels, whose shapes are different stages or
-    paths: at each shape); the row of the ``{"kernels": [...]}`` line."""
+def kernel_row(torch, ref, topk_stream, ops, op, calls, counts, jobs, flush,
+               checked=None):
+    """Check the kernel at every captured shape, ``calls`` and ``checked``
+    ({key: (args, kwargs)}, checked and not timed), and time it at the
+    shape of ``calls`` with the largest least time (lsh_hash, cf_weights,
+    distance_topk and the decode-attention kernels, whose shapes are
+    different stages or paths: at each shape); the row of the
+    ``{"kernels": [...]}`` line."""
     summaries = [check_kernel(torch, ref, topk_stream, ops, op, args, kwargs)
-                 for args, kwargs in calls.values()]
+                 for args, kwargs in [*calls.values(),
+                                      *(checked or {}).values()]]
     ranked = sorted(calls.items(),
                     key=lambda c: -bound_ms(*work(torch, op, *c[1]))[0])
     timed = []
@@ -3913,6 +4151,7 @@ def kernel_row(torch, ref, topk_stream, ops, op, calls, counts, jobs, flush):
                                      "library_ms", "no_head_start")},
         "timed_shape": top["shape"],
         "shapes_checked": len(summaries),
+        "example_shapes_checked": len(checked or {}),
         "label_mismatch": sum(s["label_mismatch"] for s in summaries),
         "near_ties": sum(s["near_ties"] for s in summaries),
         "near_tie_examples": [e for s in summaries
@@ -4095,6 +4334,15 @@ def main() -> int:
     print(json.dumps({"mesh": mesh_summary, "card": smi}, default=str))
     check_launched("mesh", counts_mesh, MESH_KERNELS)
 
+    # ---- the eight examples, in this process ----
+    gc.collect()
+    torch.cuda.empty_cache()
+    examples_probe = CaptureProbe(torch, clone=True)
+    examples_summary, counts_examples = examples_phase(torch, ops, root,
+                                                       examples_probe)
+    print_examples(examples_summary, smi)
+    print(json.dumps({"examples": examples_summary, "card": smi}))
+
     # ---- every kernel against its plain version ----
     counts = {**counts_knn, **{op: counts_cf[op] for op in CF_KERNELS},
               **{op: counts_lm[op] for op in ATTN_KERNELS}}
@@ -4112,6 +4360,8 @@ def main() -> int:
         counts[op] += counts_fleet[op]
     for op in MESH_KERNELS:
         counts[op] += counts_mesh[op]
+    for op in counts_examples:
+        counts[op] += counts_examples[op]
     all_jobs = {**jobs, **cf_jobs_out,
                 "lsh phase": {"launches": {op: counts_lsh[op]
                                            for op in LSH_KERNELS}},
@@ -4122,11 +4372,15 @@ def main() -> int:
                 "fleet phase": {"launches": {op: counts_fleet[op]
                                              for op in FLEET_KERNELS}},
                 "mesh phase (8 ranks)": {"launches": counts_mesh},
+                **{f"example {k}": {"launches": v["launches"]}
+                   for k, v in examples_summary.items() if k != "phase_s"},
                 **lm_jobs}
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device="cuda")
     rows = [kernel_row(torch, ref, topk_stream, ops, op, probe.calls[op],
-                       counts, all_jobs, flush)
+                       counts, all_jobs, flush,
+                       checked=examples_probe.calls.get(op))
             for op in ops.KERNELS]
+    examples_probe.calls.clear()
     del flush, cf_data
 
     small_check(torch, knn, lsh, refine, make_mfeat_like)
@@ -4146,6 +4400,13 @@ def main() -> int:
     sup_summary = supervisor_phase(torch)
     print_supervisor(sup_summary, smi)
     print(json.dumps({"supervisor": sup_summary, "card": smi}))
+
+    # ---- the dry run: every cell's blocks of one device, on the card ----
+    gc.collect()
+    torch.cuda.empty_cache()
+    dryrun_summary = dryrun_phase(torch)
+    print_dryrun(dryrun_summary, smi)
+    print(json.dumps({"dryrun": dryrun_summary, "card": smi}))
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after start, "
           "the build included")

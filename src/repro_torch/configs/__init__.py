@@ -9,7 +9,9 @@ from repro_torch.configs import (
     deepseek_7b, deepseek_v2_236b, gemma3_1b, moonshot_v1_16b_a3b,
     qwen2_5_14b, qwen2_vl_2b, qwen3_8b, whisper_tiny, xlstm_350m, zamba2_7b,
 )
-from repro_torch.configs.base import ModelConfig, param_count  # noqa: F401
+from repro_torch.configs.base import (  # noqa: F401
+    SHAPES, ModelConfig, ShapeConfig, active_param_count, param_count,
+)
 
 _MODULES = {
     "zamba2-7b": zamba2_7b,

@@ -1,5 +1,6 @@
 """Model configuration of the port: the architecture record shared by every
-model, as ``src/repro/configs/base.py`` defines it (the port keeps its own
+model, and the grid of shape cells the dry run sweeps, as
+``src/repro/configs/base.py`` defines them (the port keeps its own
 copy and imports nothing of the JAX package).
 
 The fields name every architecture family the JAX package knows, and the
@@ -108,6 +109,26 @@ class ModelConfig:
         return tuple((self.pattern * reps)[: self.n_layers])
 
 
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                        # train | prefill | decode
+
+    @property
+    def tokens(self) -> int:
+        return self.seq_len * self.global_batch
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
 def param_count(cfg: ModelConfig) -> int:
     """Approximate parameter count (embeddings + blocks)."""
     d = cfg.d_model
@@ -149,3 +170,20 @@ def param_count(cfg: ModelConfig) -> int:
         total += cfg.n_encoder_layers * (4 * d * hd * cfg.n_heads + 2 * d * cfg.d_ff)
         total += cfg.n_layers * 4 * d * hd * cfg.n_heads  # cross attention
     return total
+
+
+def active_param_count(cfg: ModelConfig) -> int:
+    """Active (per-token) parameters — MoE counts top_k + shared experts."""
+    if cfg.n_experts == 0:
+        return param_count(cfg)
+    full = param_count(cfg)
+    kinds = cfg.block_kinds()
+    n_moe = sum(
+        1 for i, k in enumerate(kinds)
+        if k in ("attn", "mamba", "mlstm", "slstm") and i >= cfg.first_k_dense
+    )
+    d = cfg.d_model
+    inactive = n_moe * (
+        (cfg.n_experts - cfg.moe_top_k) * 3 * d * cfg.moe_d_ff
+    )
+    return full - inactive

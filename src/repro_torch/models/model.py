@@ -330,7 +330,14 @@ def init_caches(cfg, *, batch: int, s_max: int, lsh: list | None = None,
     (the module docstring gives an encoder-decoder config's).  With
     ``cfg.agg_kv`` each aggregated layer takes its draws from ``lsh``
     (``draw_lsh``: an entry a block)."""
-    dev = resolve(device)
+    return _empty_caches(cfg, batch=batch, s_max=s_max, lsh=lsh,
+                         dev=resolve(device))
+
+
+def _empty_caches(cfg, *, batch: int, s_max: int, lsh: list | None,
+                  dev: torch.device) -> list:
+    """``init_caches`` on ``dev`` as given: the dry run builds its caches
+    on ``meta`` through it (shapes only, nothing allocated)."""
     kinds = block_kinds(cfg)
     agg = [transformer.uses_agg(cfg, kind) for kind in kinds]
     if any(agg) and (lsh is None or len(lsh) != len(kinds) or any(

@@ -280,7 +280,7 @@ def batch_specs(cfg, mesh, *, kind: str, model_axis: str = "model"
     return specs
 
 
-def _path_items(node, path: str):
+def path_items(node, path: str = ""):
     """(path, leaf) of every leaf with a shape, paths joined by ``/``."""
     if hasattr(node, "shape") and not isinstance(node, (dict, list, tuple)):
         yield path, node
@@ -295,7 +295,7 @@ def _path_items(node, path: str):
     else:
         return
     for k, v in items:
-        yield from _path_items(v, f"{path}/{k}" if path else str(k))
+        yield from path_items(v, f"{path}/{k}" if path else str(k))
 
 
 def cache_specs(caches: Any, cfg, mesh, *, model_axis: str = "model"
@@ -327,7 +327,7 @@ def cache_specs(caches: Any, cfg, mesh, *, model_axis: str = "model"
         return P(*spec)
 
     return {path: leaf_spec(path, tuple(leaf.shape))
-            for path, leaf in _path_items(caches, "")}
+            for path, leaf in path_items(caches)}
 
 
 # ---------------------------------------------------------------------------

@@ -1212,3 +1212,38 @@ def test_cuda_moe_ep_equals_moe_dense(card_world):
     _, results = card_world
     for got in results:
         assert_close(got["ep"], got["dense"], rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_dryrun_cell_fits_and_builds_on_the_card(cuda):
+    """One device's blocks of gemma3-1b decode_32k on 16 x 16 allocate on
+    the card and are freed after; gemma3-1b long_500k at a cut depth,
+    built on the card, is the dry run's stand-ins leaf by leaf."""
+    from repro_torch.launch import dryrun
+
+    rec = dryrun.run_cell("gemma3-1b", "decode_32k", False, save=False,
+                          verbose=False)
+    mem = rec["memory"]
+    held = torch.cuda.memory_allocated()
+    got = dryrun.allocate_on_card("gemma3-1b", "decode_32k", False)
+    assert got["bytes"] == mem["argument_size_in_bytes"] + mem["unused"]
+    assert got["allocated"] >= got["bytes"]
+    assert torch.cuda.memory_allocated() == held
+    cfg = dryrun.cut_depth(dryrun.cell_config("gemma3-1b", "long_500k"))
+    shape = dryrun.SHAPES["long_500k"]
+    cmp = dryrun.compare_build(cfg, shape, dryrun.build_cell(cfg, shape))
+    assert cmp["mismatches"] == [] and cmp["bytes"] == cmp["counted"]
+
+
+@pytest.mark.cuda
+def test_examples_quickstart_launches_its_kernels_on_the_card(cuda):
+    """``examples/torch_quickstart.py`` on the card returns 0 and launches
+    the seven kNN and CF kernels, and no other."""
+    from _torch_examples import load
+
+    ops.reset_launch_counts()
+    assert load("torch_quickstart").main(["--device", "cuda"]) == 0
+    launched = {op for op, n in ops.launch_counts().items() if n}
+    assert launched == {"distance_topk", "candidate_topk", "knn_distance",
+                        "refine_distances", "lsh_hash", "cf_weights",
+                        "cf_refine"}

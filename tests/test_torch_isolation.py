@@ -8,6 +8,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+from functools import partial
 from pathlib import Path
 
 import numpy as np
@@ -15,6 +16,7 @@ import pytest
 
 torch = pytest.importorskip("torch")  # the port's tests need PyTorch
 
+import _torch_examples
 import _torch_mesh_ranks
 import repro_torch
 from repro_torch.apps import cf, knn
@@ -26,7 +28,7 @@ from repro_torch.convert import (
     store_level0_from_numpy, train_state_from_tree,
 )
 from repro_torch.data.pipeline import TokenPipeline
-from repro_torch.launch import train
+from repro_torch.launch import dryrun, train
 from repro_torch.launch.mesh import (
     make_host_mesh, make_production_mesh, run_ranks,
 )
@@ -51,7 +53,7 @@ def _modules():
 
 def test_every_module_imports_without_jax_or_the_reference():
     modules = _modules()
-    assert "repro_torch.apps.knn" in modules and len(modules) >= 40
+    assert "repro_torch.apps.knn" in modules and len(modules) >= 41
     for m in ("apps.cf", "configs.qwen3_8b", "models.aggregated_kv",
               "models.model", "serve.lm.engine", "obs.metrics",
               "kernels.agg_refine", "kernels.aggregated_attention",
@@ -65,6 +67,7 @@ def test_every_module_imports_without_jax_or_the_reference():
               "runtime.chaos", "runtime.fault_tolerance", "runtime.shards",
               "optim", "optim.optimizer", "optim.grad_compression",
               "data.pipeline", "launch", "launch.train", "launch.mesh",
+              "launch.dryrun",
               "parallel", "parallel.collectives", "parallel.sharding",
               "parallel.pipeline_parallel"):
         assert f"repro_torch.{m}" in modules
@@ -139,7 +142,8 @@ def _imported_roots(path: Path) -> set[str]:
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT)) for p in [*PORT.rglob("*.py"),
                                        ROOT / "chip_smoke.py",
-                                       *(ROOT / "tools").glob("torch_*.py")]))
+                                       *(ROOT / "tools").glob("torch_*.py"),
+                                       *(ROOT / "examples").glob("torch_*.py")]))
 def test_no_source_names_jax_or_the_reference(path):
     roots = _imported_roots(ROOT / path)
     assert not roots & {"jax", "jaxlib", "repro"}, roots
@@ -254,7 +258,42 @@ def _entry_points():
         "launch.mesh.run_ranks": lambda **kw: run_ranks(
             _torch_mesh_ranks.host_mesh, 1, {"device": "cpu"}, timeout=120,
             **kw),
+        "launch.dryrun.allocate_on_card": lambda **kw: (
+            dryrun.allocate_on_card("gemma3-1b", "decode_32k", False, **kw)),
+        "launch.dryrun.build_cell": lambda **kw: [t for _, _, t in (
+            dryrun.build_cell(dryrun.cut_depth(get_config(
+                "qwen3-8b", smoke=True)), dryrun.SHAPES["train_4k"], **kw))],
+        # each example's exit code, at the tests' sizes
+        **{f"examples/torch_{name}.py": partial(_example, name, *argv)
+           for name, argv in EXAMPLES.items()},
     }
+
+
+# what a card-only entry point raises when asked for the CPU
+CARD_ONLY = {"launch.dryrun.allocate_on_card": "caching allocator"}
+EXAMPLES = {
+    "quickstart": (), "cf_recommend": (), "store_pyramid": (),
+    "serve_aggregated": ("--knn-points", "2048", "--cf-users", "512",
+                         "--batch", "2"),
+    "observe_serving": (), "chaos_serving": (), "serve_lm_decode": (),
+    "train_lm": ("--steps", "3", "--save-every", "2", "--d-model", "64",
+                 "--layers", "2", "--heads", "4", "--kv-heads", "2",
+                 "--d-ff", "128", "--vocab", "512", "--batch", "2", "--seq",
+                 "32"),
+}
+
+
+def _example(name, *argv, device=None):
+    extra = ()
+    if name == "train_lm":
+        extra = ("--ckpt-dir", tempfile.mkdtemp(prefix="torch_train_lm_"))
+    try:
+        return _torch_examples.run_port(
+            name, *argv, *extra, device=device,
+            tiny=name in ("observe_serving", "chaos_serving"))[0]
+    finally:
+        if extra:
+            shutil.rmtree(extra[1], ignore_errors=True)
 
 
 def _restore(**kw):
@@ -267,12 +306,23 @@ def _restore(**kw):
 
 @pytest.mark.parametrize("name", sorted(_entry_points()))
 def test_entry_points_need_the_card_unless_asked_for_the_cpu(no_cuda, name):
+    """Each raises without a card, by default and asked for it; asked for
+    the CPU, it returns tensors there (an example: its exit code, 0), or,
+    measuring the card, refuses."""
     call = _entry_points()[name]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         call()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         call(device="cuda")
-    tensors = list(_tensors(call(device="cpu")))
+    if name in CARD_ONLY:
+        with pytest.raises(ValueError, match=CARD_ONLY[name]):
+            call(device="cpu")
+        return
+    out = call(device="cpu")
+    if name.startswith("examples/"):
+        assert out == 0
+        return
+    tensors = list(_tensors(out))
     assert tensors and all(t.device.type == "cpu" for t in tensors)
 
 
