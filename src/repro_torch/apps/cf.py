@@ -14,10 +14,11 @@ buckets' surrogate with exact per-user terms.
 
 The hot loops go through ``kernels.ops``: the CUDA kernels for CUDA
 tensors, the plain versions for CPU tensors.  The products that the JAX
-package leaves to XLA stay ``torch.matmul`` in fp32.  The same functions as
-``src/repro/apps/cf.py``, with the same outputs and dtypes, and its serving
-adapter ``CFServable``, whose aggregates come from the aggregate store
-(``cf_mergeable_stats`` / ``cf_assemble``).
+package leaves to XLA stay ``torch.matmul`` in fp32.  A job and its map
+tasks open the launch-side stage spans of ``repro_torch.obs.trace``.  The
+same functions as ``src/repro/apps/cf.py``, with the same outputs and
+dtypes, and its serving adapter ``CFServable``, whose aggregates come from
+the aggregate store (``cf_mergeable_stats`` / ``cf_assemble``).
 """
 from __future__ import annotations
 
@@ -36,6 +37,7 @@ from repro_torch.device import to_device
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels import ref
 from repro_torch.kernels.topk_stream import BIG
+from repro_torch.obs.trace import current_tracer
 from repro_torch.serve import servable as serve_servable
 from repro_torch.serve.request import ErrorBound
 
@@ -117,10 +119,14 @@ def build_cf_aggregates(
     ratings: torch.Tensor, mask: torch.Tensor, params: lsh_lib.LSHParams
 ) -> CFAggregates:
     """LSH-bucket users by centred rating profile; aggregate (§III-B)."""
-    centred = ref._centred(ratings, mask)
-    ids = lsh_lib.bucket_ids(centred, params)
-    return cf_assemble(*_cf_level(ratings, mask, centred, ids,
-                                  params.config.n_buckets))
+    tracer = current_tracer()
+    with tracer.span("map.lsh"):
+        centred = ref._centred(ratings, mask)
+        ids = lsh_lib.bucket_ids(centred, params)
+    n_buckets = params.config.n_buckets
+    with tracer.span("map.aggregate", n_buckets=n_buckets):
+        return cf_assemble(*_cf_level(ratings, mask, centred, ids,
+                                      n_buckets))
 
 
 def cf_mergeable_stats(
@@ -170,44 +176,49 @@ def accurateml_map(
     It is additive under the engine's psum, so the cross-shard stderr
     sqrt(varsum)/den is exact.
     """
+    tracer = current_tracer()
     agg = cf_agg.agg
-    live = agg.counts[None, :] > 0
-    # ---- stage 1: centroid weights + surrogate contribution ----
-    w_g = kernel_ops.cf_weights(
-        active, active_mask, cf_agg.profile, cf_agg.profile_mask
-    )                                                    # [Q,K]
-    co_g = active_mask @ cf_agg.profile_mask.T
-    w_g = torch.where(live, shrink_weights(w_g, co_g), 0.0)
-    num = w_g @ cf_agg.s                                 # [Q,I]
-    den = w_g.abs() @ cf_agg.c
+    with tracer.span("map.stage1"):
+        live = agg.counts[None, :] > 0
+        # ---- stage 1: centroid weights + surrogate contribution ----
+        w_g = kernel_ops.cf_weights(
+            active, active_mask, cf_agg.profile, cf_agg.profile_mask
+        )                                                # [Q,K]
+        co_g = active_mask @ cf_agg.profile_mask.T
+        w_g = torch.where(live, shrink_weights(w_g, co_g), 0.0)
+        num = w_g @ cf_agg.s                             # [Q,I]
+        den = w_g.abs() @ cf_agg.c
 
-    if refine_budget <= 0:
-        if not with_bound:
-            return num, den
-        return num, den, w_g.square() @ cf_agg.cvar
+        if refine_budget <= 0:
+            if not with_bound:
+                return num, den
+            return num, den, w_g.square() @ cf_agg.cvar
 
     # ---- stage 2: per-query replacement of top buckets by exact users ----
-    rankings = corr_lib.rank_buckets_multi(w_g.abs(), agg.counts)
-    idx, valid = agg_lib.refinement_indices(agg, rankings, refine_budget)
-    covered = agg_lib.buckets_fully_covered(agg, rankings, refine_budget)
-    covered = covered & live                             # [Q,K]
+    with tracer.span("map.select", refine_budget=refine_budget):
+        rankings = corr_lib.rank_buckets_multi(w_g.abs(), agg.counts)
+        idx, valid = agg_lib.refinement_indices(agg, rankings, refine_budget)
+        covered = agg_lib.buckets_fully_covered(agg, rankings, refine_budget)
+        covered = covered & live                         # [Q,K]
 
-    # Exact sums must not double-count: only users of fully covered buckets
-    # (per query) replace their bucket's surrogate.
-    use = valid & covered.gather(1, agg.bucket_of[idx.long()].long())
-    _, num_delta, den_delta = kernel_ops.cf_refine(
-        active, active_mask, ratings, mask, idx, use, shrink=SHRINK
-    )
+        # Exact sums must not double-count: only users of fully covered
+        # buckets (per query) replace their bucket's surrogate.
+        use = valid & covered.gather(1, agg.bucket_of[idx.long()].long())
 
-    # Subtract the covered buckets' surrogate, add their exact terms.
-    w_g_cov = torch.where(covered, w_g, 0.0)
-    num = num - w_g_cov @ cf_agg.s + num_delta
-    den = den - w_g_cov.abs() @ cf_agg.c + den_delta
-    if not with_bound:
-        return num, den
-    # Surrogate variance only over the unrefined buckets.
-    w_g_unc = torch.where(covered, 0.0, w_g)
-    return num, den, w_g_unc.square() @ cf_agg.cvar
+    with tracer.span("map.refine"):
+        _, num_delta, den_delta = kernel_ops.cf_refine(
+            active, active_mask, ratings, mask, idx, use, shrink=SHRINK
+        )
+
+        # Subtract the covered buckets' surrogate, add their exact terms.
+        w_g_cov = torch.where(covered, w_g, 0.0)
+        num = num - w_g_cov @ cf_agg.s + num_delta
+        den = den - w_g_cov.abs() @ cf_agg.c + den_delta
+        if not with_bound:
+            return num, den
+        # Surrogate variance only over the unrefined buckets.
+        w_g_unc = torch.where(covered, 0.0, w_g)
+        return num, den, w_g_unc.square() @ cf_agg.cvar
 
 
 # ---------------------------------------------------------------------------
@@ -281,29 +292,27 @@ def run_accurateml(
         )
     dev, ratings, mask, active, active_mask = to_device(
         device, ratings, mask, active, active_mask)
-    num = den = 0.0
-    for s, sl in enumerate(_shard_slices(ratings.shape[0], n_shards)):
-        r_, m_ = ratings[sl], mask[sl]
-        cfg = lsh_lib.config_for_compression(
-            r_.shape[0], compression_ratio, n_hashes=n_hashes,
-            bucket_width=bucket_width,
-        )
-        if lsh_params is None:
-            params = lsh_lib.init_lsh(lsh_generator, r_.shape[1], cfg,
-                                      device=dev)
-        else:
-            params = lsh_params[s]
-            if params.config != cfg:
-                raise ValueError(
-                    f"shard {s}: lsh_params config {params.config} != {cfg}"
-                )
-        cf_agg = build_cf_aggregates(r_, m_, params)
-        budget = refine_lib.eps_to_budget(r_.shape[0], eps_max)
-        n_, d_ = accurateml_map(
-            r_, m_, cf_agg, active, active_mask, refine_budget=budget
-        )
-        num, den = num + n_, den + d_
-    return predict(num, den, active, active_mask)
+    # The shards' views and LSH draws come before the job's span.
+    shards = [(ratings[sl], mask[sl])
+              for sl in _shard_slices(ratings.shape[0], n_shards)]
+    params = lsh_lib.shard_lsh_params(
+        [r_ for r_, _ in shards], compression_ratio, n_hashes=n_hashes,
+        bucket_width=bucket_width, generator=lsh_generator,
+        params=lsh_params, device=dev)
+    tracer = current_tracer()
+    with tracer.span("job", app="cf", shards=n_shards,
+                     queries=active.shape[0], eps_max=eps_max):
+        num = den = 0.0
+        for (r_, m_), p in zip(shards, params):
+            cf_agg = build_cf_aggregates(r_, m_, p)
+            budget = refine_lib.eps_to_budget(r_.shape[0], eps_max)
+            n_, d_ = accurateml_map(
+                r_, m_, cf_agg, active, active_mask, refine_budget=budget
+            )
+            with tracer.span("reduce"):
+                num, den = num + n_, den + d_
+        with tracer.span("reduce"):
+            return predict(num, den, active, active_mask)
 
 
 def run_sampled(

@@ -11,7 +11,8 @@ Three map-task variants share one reduce:
 Each map shard outputs its local top-k (distance, label) per test point and
 the reduce merges the shards' sets into the global top-k, then
 majority-votes.  The hot loops go through ``kernels.ops``: the CUDA kernels
-for CUDA tensors, the plain versions for CPU tensors.  The same functions
+for CUDA tensors, the plain versions for CPU tensors.  A job and its map
+tasks open the launch-side stage spans of ``repro_torch.obs.trace``.  The same functions
 as ``src/repro/apps/knn.py``, with the same outputs and dtypes, and its
 serving adapter ``KNNServable``, whose aggregates come from the aggregate
 store (``knn_mergeable_stats`` / ``knn_assemble``).
@@ -32,6 +33,7 @@ from repro_torch.core import refine as refine_lib
 from repro_torch.device import to_device
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.topk_stream import BIG
+from repro_torch.obs.trace import current_tracer
 from repro_torch.serve import servable as serve_servable
 from repro_torch.serve.request import ErrorBound
 
@@ -158,9 +160,13 @@ def build_knn_aggregates(
     train_x: torch.Tensor, train_y: torch.Tensor,
     params: lsh_lib.LSHParams, n_classes: int,
 ) -> KNNAggregates:
-    ids = lsh_lib.bucket_ids(train_x, params)
-    return knn_assemble(*_knn_level(train_x, train_y, ids,
-                                    params.config.n_buckets, n_classes))
+    tracer = current_tracer()
+    with tracer.span("map.lsh"):
+        ids = lsh_lib.bucket_ids(train_x, params)
+    n_buckets = params.config.n_buckets
+    with tracer.span("map.aggregate", n_buckets=n_buckets):
+        return knn_assemble(*_knn_level(train_x, train_y, ids, n_buckets,
+                                        n_classes))
 
 
 def knn_mergeable_stats(
@@ -277,67 +283,77 @@ def accurateml_map(
     id packed next to its label (``label * (K+1) + bucket``; refined
     originals use the sentinel bucket K).
     """
+    tracer = current_tracer()
     agg = knn_agg.agg
     n_k = agg.means.shape[0]
     kk = k + 1 if with_bound else k
-    if with_bound:
-        cent_ids = torch.arange(n_k, dtype=torch.int32, device=test_x.device)
-        cent_comb = knn_agg.bucket_labels * (n_k + 1) + cent_ids
-        zero = torch.zeros(1, dtype=torch.float32, device=test_x.device)
-        spread_ext = torch.cat([knn_agg.spread, zero])
-        disp_ext = torch.cat([knn_agg.dispersion, zero])
+    with tracer.span("map.stage1"):
+        if with_bound:
+            cent_ids = torch.arange(n_k, dtype=torch.int32,
+                                    device=test_x.device)
+            cent_comb = knn_agg.bucket_labels * (n_k + 1) + cent_ids
+            zero = torch.zeros(1, dtype=torch.float32, device=test_x.device)
+            spread_ext = torch.cat([knn_agg.spread, zero])
+            disp_ext = torch.cat([knn_agg.dispersion, zero])
 
-    if refine_budget <= 0:
-        # Pure stage 1: fused distance + top-k over the aggregated points.
-        if not with_bound:
-            return kernel_ops.distance_topk(
-                test_x, agg.means, knn_agg.bucket_labels, agg.counts > 0, k=k
+        if refine_budget <= 0:
+            # Pure stage 1: fused distance + top-k over the aggregated points.
+            if not with_bound:
+                return kernel_ops.distance_topk(
+                    test_x, agg.means, knn_agg.bucket_labels, agg.counts > 0,
+                    k=k
+                )
+            d, comb = kernel_ops.distance_topk(
+                test_x, agg.means, cent_comb, agg.counts > 0, k=kk
             )
-        d, comb = kernel_ops.distance_topk(
-            test_x, agg.means, cent_comb, agg.counts > 0, k=kk
-        )
-        bid = (comb % (n_k + 1)).long()
-        labels = comb // (n_k + 1)
-        bound = _vote_bound(d, labels, spread_ext[bid], disp_ext[bid], k)
-        return d[:, :k], labels[:, :k], bound
+            bid = (comb % (n_k + 1)).long()
+            labels = comb // (n_k + 1)
+            bound = _vote_bound(d, labels, spread_ext[bid], disp_ext[bid], k)
+            return d[:, :k], labels[:, :k], bound
 
-    # ---- stage 1: correlations from the aggregated points (Alg. 1 l.2) ----
-    d_cent = pairwise_sq_dists(test_x, agg.means)             # [Q, K]
-    d_cent = torch.where(agg.counts[None, :] > 0, d_cent, BIG)
-    corr = -d_cent
+        # ---- stage 1: correlations from the aggregated points (Alg. 1 l.2)
+        d_cent = pairwise_sq_dists(test_x, agg.means)         # [Q, K]
+        d_cent = torch.where(agg.counts[None, :] > 0, d_cent, BIG)
+        corr = -d_cent
 
     # ---- stage 2: per-query refinement of the top-correlated buckets ----
-    rankings = corr_lib.rank_buckets_multi(corr, agg.counts)  # [Q, K]
-    idx, valid = agg_lib.refinement_indices(agg, rankings, refine_budget)
-    covered = agg_lib.buckets_fully_covered(agg, rankings, refine_budget)
-    covered = covered & (agg.counts[None, :] > 0)
+    with tracer.span("map.select", refine_budget=refine_budget):
+        rankings = corr_lib.rank_buckets_multi(corr, agg.counts)  # [Q, K]
+        idx, valid = agg_lib.refinement_indices(agg, rankings, refine_budget)
+        covered = agg_lib.buckets_fully_covered(agg, rankings, refine_budget)
+        covered = covered & (agg.counts[None, :] > 0)
 
-    d_ref = kernel_ops.refine_distances(test_x, train_x, idx, valid,
-                                        agg.bucket_of, n_buckets=n_k)
-    ref_y = train_y[idx.long()]                               # [Q, B]
-    d_cent_masked = torch.where(covered, BIG, d_cent)
+    with tracer.span("map.refine"):
+        d_ref = kernel_ops.refine_distances(test_x, train_x, idx, valid,
+                                            agg.bucket_of, n_buckets=n_k)
+        ref_y = train_y[idx.long()]                           # [Q, B]
+        d_cent_masked = torch.where(covered, BIG, d_cent)
 
-    # Masked centroids seed the running k-best, refined candidates merge in.
-    if not with_bound:
-        cent_labels = knn_agg.bucket_labels[None, :].expand(d_cent.shape)
-        best_d, best_l = kernel_ops.candidate_topk(
-            d_cent_masked, cent_labels.contiguous(), k=k
+        # Masked centroids seed the running k-best, refined candidates
+        # merge in.
+        if not with_bound:
+            cent_labels = knn_agg.bucket_labels[None, :].expand(d_cent.shape)
+            best_d, best_l = kernel_ops.candidate_topk(
+                d_cent_masked, cent_labels.contiguous(), k=k
+            )
+            return kernel_ops.candidate_topk(d_ref, ref_y, best_d, best_l,
+                                             k=k)
+
+        best_d, best_c = kernel_ops.candidate_topk(
+            d_cent_masked,
+            cent_comb[None, :].expand(d_cent.shape).contiguous(), k=kk,
         )
-        return kernel_ops.candidate_topk(d_ref, ref_y, best_d, best_l, k=k)
-
-    best_d, best_c = kernel_ops.candidate_topk(
-        d_cent_masked, cent_comb[None, :].expand(d_cent.shape).contiguous(),
-        k=kk,
-    )
-    ref_comb = ref_y * (n_k + 1) + n_k
-    d, comb = kernel_ops.candidate_topk(d_ref, ref_comb, best_d, best_c, k=kk)
-    bid = (comb % (n_k + 1)).long()
-    labels = comb // (n_k + 1)
-    hidden = _hidden_risk(d_cent_masked, knn_agg.spread, bid, d[:, k], n_k)
-    bound = _vote_bound(
-        d, labels, spread_ext[bid], disp_ext[bid], k, hidden=hidden
-    )
-    return d[:, :k], labels[:, :k], bound
+        ref_comb = ref_y * (n_k + 1) + n_k
+        d, comb = kernel_ops.candidate_topk(d_ref, ref_comb, best_d, best_c,
+                                            k=kk)
+        bid = (comb % (n_k + 1)).long()
+        labels = comb // (n_k + 1)
+        hidden = _hidden_risk(d_cent_masked, knn_agg.spread, bid, d[:, k],
+                              n_k)
+        bound = _vote_bound(
+            d, labels, spread_ext[bid], disp_ext[bid], k, hidden=hidden
+        )
+        return d[:, :k], labels[:, :k], bound
 
 
 # ---------------------------------------------------------------------------
@@ -394,30 +410,27 @@ def run_accurateml(
     dev, train_x, train_y, test_x = to_device(
         device, train_x, train_y, test_x
     )
-    shards_d, shards_l = [], []
-    for s, sl in enumerate(_shard_slices(train_x.shape[0], n_shards)):
-        sx, sy = train_x[sl], train_y[sl]
-        cfg = lsh_lib.config_for_compression(
-            sx.shape[0], compression_ratio, n_hashes=n_hashes,
-            bucket_width=bucket_width,
-        )
-        if lsh_params is None:
-            params = lsh_lib.init_lsh(lsh_generator, sx.shape[1], cfg,
-                                      device=dev)
-        else:
-            params = lsh_params[s]
-            if params.config != cfg:
-                raise ValueError(
-                    f"shard {s}: lsh_params config {params.config} != {cfg}"
-                )
-        knn_agg = build_knn_aggregates(sx, sy, params, n_classes)
-        budget = refine_lib.eps_to_budget(sx.shape[0], eps_max)
-        d, lab = accurateml_map(
-            sx, sy, knn_agg, test_x, k=k, refine_budget=budget
-        )
-        shards_d.append(d)
-        shards_l.append(lab)
-    return _reduce(shards_d, shards_l, k, n_classes)
+    # The shards' views and LSH draws come before the job's span.
+    shards = [(train_x[sl], train_y[sl])
+              for sl in _shard_slices(train_x.shape[0], n_shards)]
+    params = lsh_lib.shard_lsh_params(
+        [sx for sx, _ in shards], compression_ratio, n_hashes=n_hashes,
+        bucket_width=bucket_width, generator=lsh_generator,
+        params=lsh_params, device=dev)
+    tracer = current_tracer()
+    with tracer.span("job", app="knn", shards=n_shards,
+                     queries=test_x.shape[0], eps_max=eps_max):
+        shards_d, shards_l = [], []
+        for (sx, sy), p in zip(shards, params):
+            knn_agg = build_knn_aggregates(sx, sy, p, n_classes)
+            budget = refine_lib.eps_to_budget(sx.shape[0], eps_max)
+            d, lab = accurateml_map(
+                sx, sy, knn_agg, test_x, k=k, refine_budget=budget
+            )
+            shards_d.append(d)
+            shards_l.append(lab)
+        with tracer.span("reduce"):
+            return _reduce(shards_d, shards_l, k, n_classes)
 
 
 def run_sampled(

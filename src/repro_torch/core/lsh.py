@@ -131,3 +131,28 @@ def config_for_compression(
     return LSHConfig(
         n_hashes=n_hashes, bucket_width=bucket_width, n_buckets=n_buckets
     )
+
+
+def shard_lsh_params(
+    shards: list[torch.Tensor], compression_ratio: float, *, n_hashes: int,
+    bucket_width: float, generator: torch.Generator | None = None,
+    params: list[LSHParams] | None = None,
+    device: str | torch.device = "cuda",
+) -> list[LSHParams]:
+    """Each map shard's LSH params at ``compression_ratio``: drawn from
+    ``generator`` in shard order, or ``params`` (one per shard) checked
+    against each shard's config."""
+    out = []
+    for s, x in enumerate(shards):
+        cfg = config_for_compression(x.shape[0], compression_ratio,
+                                     n_hashes=n_hashes,
+                                     bucket_width=bucket_width)
+        if params is None:
+            out.append(init_lsh(generator, x.shape[1], cfg, device=device))
+        elif params[s].config != cfg:
+            raise ValueError(
+                f"shard {s}: lsh_params config {params[s].config} != {cfg}"
+            )
+        else:
+            out.append(params[s])
+    return out

@@ -1,4 +1,5 @@
-"""repro_torch.obs — end-to-end observability for the anytime serving path.
+"""repro_torch.obs — end-to-end observability for the anytime serving path
+and the batch jobs.
 
 The paper's product is a *trade-off curve* (execution time vs. accuracy
 loss, §IV); this subsystem makes both axes observable from the running
@@ -8,14 +9,21 @@ Layers (trace -> metrics -> probes -> decision)
 ===============================================
 
     [ trace ]    repro_torch.obs.trace — span trees with explicit host
-        |        clocks, closed only where the card has finished.  One
-        |        served batch yields one tree: batcher enqueue->admit
-        |        waits, the deadline grant, the aggregate-cache lookup
-        |        (hit/built/merged/restored), MapReduce map/reduce with
-        |        shuffle bytes, and stage-2 refinement.  Propagated by
-        |        contextvar (use_tracer / current_tracer); the default
-        |        NULL_TRACER makes every call a no-op.  Export: JSON-lines
-        |        (schema pinned by validate_trace_jsonl) + tree dump.
+        |        clocks.  The serving path's spans close only where the
+        |        card has finished: one served batch yields one tree of
+        |        batcher enqueue->admit waits, the deadline grant, the
+        |        aggregate-cache lookup (hit/built/merged/restored),
+        |        MapReduce map/reduce with shuffle bytes, and stage-2
+        |        refinement.  A run_accurateml job yields one tree of
+        |        launch-side spans that never synchronise: job, then
+        |        map.lsh, map.aggregate, map.stage1, map.select and
+        |        map.refine per map task, and reduce.  While torch.profiler
+        |        records, every span is mirrored as a "span:<name>" range,
+        |        so each stage's device time and idle gaps come from the
+        |        profiler's trace.  Propagated by contextvar (use_tracer /
+        |        current_tracer); the default NULL_TRACER records nothing.
+        |        Export: JSON-lines (schema pinned by validate_trace_jsonl)
+        |        + tree dump.
         v
     [ metrics ]  repro_torch.obs.metrics — typed registry of counters,
         |        gauges, fixed-bucket histograms, and bounded reservoirs
@@ -51,8 +59,9 @@ Layers (trace -> metrics -> probes -> decision)
                  MetricSpecs with noise tolerances, measured wall-clock
                  speedups as a non-gating watch channel.
 
-Everything is off by default and cheap when off: a server without a tracer
-runs against NULL_TRACER, the kernel wrappers cost one ``is None`` test
+Everything is off by default and cheap when off: a server or job without a
+tracer runs against NULL_TRACER (one check of the profiler a span, no
+allocation), the kernel wrappers cost one ``is None`` test
 when no probe is installed, and a server without ``window_s`` builds no
 rollup, monitor, or recorder.
 """

@@ -1,24 +1,48 @@
-"""Lightweight span-tree tracing for the anytime serving path.
+"""Lightweight span-tree tracing for the port: the anytime serving path
+and the stages of a batch job.
 
-A ``Span`` is one named, timed unit of host-side work; spans nest into a
-tree rooted at the outermost open span (one root per served batch in
-``repro_torch.serve``).  Two rules keep this honest on an asynchronous card:
+A ``Span`` is one named unit of host-side work; spans nest into a tree
+rooted at the outermost open span (one root per served batch in
+``repro_torch.serve``, one per ``run_accurateml`` job in ``repro_torch.apps``).
+Two kinds of span share this one API:
 
-  * **explicit clocks** — a tracer owns one host clock (``perf_counter`` by
-    default, injectable for tests); spans are only ever opened and closed
-    around points where the card has finished (a synchronise) in *host*
-    code, never around a bare launch (a clock read after a launch records
-    launch time, not run time);
-  * **explicit time spans** — work whose start predates the current span
-    (a request waiting in the queue) is recorded with ``add_span(name, t0,
-    t1)`` using clock values captured where they were meaningful.
+  * **synchronised spans** (the serving path, the ``MapReduce`` engine) —
+    a tracer owns one host clock (``perf_counter`` by default, injectable
+    for tests); these spans are only ever opened and closed around points
+    where the card has finished (the engine synchronises at its stage
+    boundaries under a live tracer), never around a bare launch, since a
+    clock read after a launch records launch time, not run time.  Work
+    whose start predates the current span (a request waiting in the queue)
+    is recorded with ``add_span(name, t0, t1)`` using clock values captured
+    where they were meaningful;
+  * **launch-side spans** (the stages of a job) — opened and closed around
+    launches without any synchronise, so that a job whose host paces the
+    card runs as it does untraced.  Their host clock times the launches;
+    the device time of each stage comes from ``torch.profiler``: while it
+    records, every span, of either kind, is mirrored as a
+    ``record_function("span:<name>")`` range, so it sits on the device
+    trace's own timeline and the profiler's correlation ids join each
+    kernel to the stage whose span holds its launch.
+
+The stages of a job (``apps/knn.py`` and ``apps/cf.py``, ``run_accurateml``):
+``job`` (the root; attrs ``app``, ``shards``, ``queries``, ``eps_max``),
+then per map task ``map.lsh`` (bucket ids; CF's centring),
+``map.aggregate`` (the segment sums and the prepared aggregates; attr
+``n_buckets``), ``map.stage1`` (the centroid distances or weights and the
+surrogate), and with a refinement budget ``map.select`` (ranking and the
+refined rows; attr ``refine_budget``) and ``map.refine`` (the refined
+terms and their merge), and ``reduce`` (kNN: once, the merge and vote; CF:
+each map task's partial-sum add and the prediction).  Inside ``job``
+every torch op lies inside exactly one stage.
 
 Propagation uses a ``contextvars.ContextVar``: the server installs its
 tracer with ``use_tracer`` around batch execution and deeper layers (the
-``MapReduce`` engine, the aggregate store) pick it up via
+``MapReduce`` engine, the aggregate store, the apps) pick it up via
 ``current_tracer()`` — no tracer parameter threads through the stack, and
-the default is ``NULL_TRACER`` whose every operation is a no-op, so the
-un-observed hot path stays lean.
+the default is ``NULL_TRACER``, which records nothing: with no profiler
+recording its ``span`` returns the shared ``_NULL_SPAN`` (no allocation,
+no ``record_function``, which costs microseconds even with no profiler
+running), so the un-observed hot path stays lean.
 
 Export: ``to_jsonl`` (one flat JSON object per span, schema pinned by
 ``validate_trace_jsonl``) and ``render`` (human-readable tree dump).
@@ -34,6 +58,9 @@ import json
 import time
 from collections import deque
 from typing import Any, Callable, Iterator
+
+from torch.autograd import _profiler_enabled
+from torch.profiler import record_function
 
 # Flat-span schema (one JSON object per line of to_jsonl). Bump SCHEMA_VERSION
 # when a key is added/removed; validate_trace_jsonl pins it in CI.
@@ -110,14 +137,44 @@ class _NullSpan:
 
 _NULL_SPAN = _NullSpan()
 
+# The prefix of a span's profiler range, apart from other annotations.
+SPAN_PREFIX = "span:"
+
+
+class _ProfiledSpan:
+    """A span as the profiler alone sees it: a ``span:<name>`` range."""
+
+    __slots__ = ("_range",)
+
+    def __init__(self, name: str):
+        self._range = record_function(SPAN_PREFIX + name)
+
+    def __enter__(self) -> "_ProfiledSpan":
+        self._range.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self._range.__exit__(*exc)
+        return False
+
+    def set(self, **attrs: Any) -> "_ProfiledSpan":
+        return self
+
+
+def _profiled(name: str) -> _ProfiledSpan | _NullSpan:
+    """The span's profiler range while ``torch.profiler`` records, else
+    the shared no-op."""
+    return _ProfiledSpan(name) if _profiler_enabled() else _NULL_SPAN
+
 
 class NullTracer:
-    """API-compatible no-op tracer (the off-by-default recorder)."""
+    """API-compatible no-op tracer (the off-by-default recorder); its spans
+    reach the profiler alone, while it records."""
 
     enabled = False
 
-    def span(self, name: str, **attrs: Any) -> _NullSpan:
-        return _NULL_SPAN
+    def span(self, name: str, **attrs: Any) -> _ProfiledSpan | _NullSpan:
+        return _profiled(name)
 
     def add_span(
         self, name: str, t_start: float, t_end: float, **attrs: Any
@@ -159,12 +216,14 @@ class Tracer:
     # ------------------------------------------------------------------
     @contextlib.contextmanager
     def span(self, name: str, **attrs: Any) -> Iterator[Span]:
-        """Open a child of the current span (or a new root), close on exit."""
+        """Open a child of the current span (or a new root), close on exit;
+        mirrored into the profiler while it records."""
         sp = self._open(name, self.clock())
         if attrs:
             sp.attrs.update(attrs)
         try:
-            yield sp
+            with _profiled(name):
+                yield sp
         finally:
             sp.t_end = self.clock()
             self._close(sp)

@@ -46,10 +46,21 @@ KERNEL_NAMES = {
 }
 
 
+def _device_us(evt) -> float:
+    """Device time of one averaged event; 0 for host operations, whose
+    kernels are events of their own (counting both would count twice)."""
+    from torch.autograd import DeviceType
+
+    if evt.device_type != DeviceType.CUDA:
+        return 0.0
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
 def profiled(torch, fn, ported) -> dict:
     """One run of ``fn`` under the profiler: wall, device and idle share."""
-    from torch_knn_profile import _device_us
-
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:

@@ -74,7 +74,7 @@ def split_step(torch, run, frac, model, opt, ef, batch):
 
 
 def profiled(torch, fn) -> dict:
-    from torch_knn_profile import _device_us
+    from torch_lm_profile import _device_us
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
