@@ -8,7 +8,7 @@ Run from the repository root, on a machine with an NVIDIA H100:
 
 What it does, in order:
 
-1. builds the nine CUDA kernels from ``src/repro_torch/csrc`` with nvcc
+1. builds the ten CUDA kernels from ``src/repro_torch/csrc`` with nvcc
    (one process per source, in parallel) and prints each kernel's register
    and spill count from ``-Xptxas=-v``;
 2. drives the port's main paths through their entry points, each at the
@@ -29,7 +29,9 @@ What it does, in order:
      ``run_sampled`` at the equal-work fraction 1/20 + 0.05,
      ``run_accurateml`` at compression 20 with eps_max 0 and 0.05, each
      cold and once warm, and one ``accurateml_map(..., with_bound=True)``
-     batch through ``MapReduce(mesh=None)`` with the psum combine;
+     batch through ``MapReduce(mesh=None)`` with the psum combine; every
+     ``run_accurateml`` job must also make one ``cf_aggregate`` launch a
+     shard (the bucket statistics), the other jobs none;
    * the LSH hash phase: ``ops.lsh_hash`` (the kernel's raw hashes) on
      both paths' hash inputs (kNN shard 0's rows, CF shard 0's centred
      profiles);
@@ -53,7 +55,8 @@ What it does, in order:
      a full budget (shard 0, 128 queries) the store-backed labels equal
      ``exact_map``'s but at near-ties, and the CF fold's RMSE passes the CF
      path's checks; it must launch lsh_hash, distance_topk, knn_distance,
-     refine_distances, candidate_topk, cf_weights and cf_refine;
+     refine_distances, candidate_topk, cf_weights, cf_refine and
+     cf_aggregate;
    * aggregated-KV LM decode: qwen3-8b at full width and depth (36 layers,
      d_model 4096, 32 query over 8 KV heads of 128, d_ff 12,288, vocab
      151,936 padded to 152,064, bf16, random weights from seed 0) served by
@@ -164,7 +167,7 @@ What it does, in order:
      with ``Overloaded`` and a ``retry_after_s`` above 0; the metrics
      snapshot, trace and flight exports valid, every escalated batch kept;
      the probe's calls per op equal to the launches; ``calibrate``'s
-     stage-1 time at least the CUDA-event time of its own runs; eight
+     stage-1 time at least the CUDA-event time of its own runs; nine
      kernels launched (all but ``agg_refine_attention``).  Per class it
      prints, besides the latencies and grants, each batch's host time
      outside its servable runs (from the spans) and its span over the
@@ -205,7 +208,7 @@ What it does, in order:
      over the first 48,016 users (48,019 does not divide by 8: 3 users
      cut), 8 shards of 6,002 x 17,700, 1024 active users, eps 0.05, psum
      (num, den, varsum within 2e-4 of the 8 single-device shards summed).
-     All seven kNN and CF kernels must launch on every rank.  One MoE layer
+     All eight kNN and CF kernels must launch on every rank.  One MoE layer
      of moonshot-v1-16b-a3b at its published widths (d_model 2,048, 64
      experts of 1,408, top-6, 2 shared; f32, no drops) on a (2, 4) data x
      model mesh through ``_moe_ep_sharded``: ``moe_ep``, ``moe_ep_a2a``
@@ -226,9 +229,9 @@ What it does, in order:
      card at its defaults (the JAX package's examples' sizes;
      ``torch_train_lm`` at 30 steps, the supervisor phase's cut), its
      launches counted alone: each returns 0 with its own checks passing
-     and launches exactly the kernels of its ``EXAMPLES`` row (all seven
+     and launches exactly the kernels of its ``EXAMPLES`` row (all eight
      kNN and CF kernels for quickstart, serve_aggregated and
-     observe_serving, the three CF ones for cf_recommend, ``lsh_hash`` for
+     observe_serving, the four CF ones for cf_recommend, ``lsh_hash`` for
      store_pyramid, the five kNN ones for chaos_serving,
      ``distance_topk`` and ``agg_refine_attention`` for serve_lm_decode,
      none for train_lm); their launches join the kernels line, and each
@@ -297,7 +300,8 @@ agree exactly except at near-ties: a slot whose plain distance has a
 neighbour in the plain ranking (the (k+1)-th included) within that
 tolerance; each one is counted and the first few are named.  CF weights and
 sums agree within rtol 2e-4 plus atol 2e-4, the JAX package's CF kernel
-tolerance.  LSH hashes may differ by one on under 0.1 % of entries, where a
+tolerance; CF's bucket statistics (``cf_aggregate``) equal the plain
+version's bits (the same products, each sum in the same order).  LSH hashes may differ by one on under 0.1 % of entries, where a
 projection lies on a bucket border (the JAX package's own rule); bucket ids
 agree on every row whose hashes all agree, and under 0.1 % of rows have a
 flipped hash.  The full-scale CF answers: under 0.1 % of the predictions
@@ -539,11 +543,11 @@ SUP_SEQ = 128
 
 KNN_KERNELS = ("distance_topk", "candidate_topk", "knn_distance",
                "refine_distances", "lsh_hash")
-CF_KERNELS = ("cf_weights", "cf_refine", "lsh_hash")
+CF_KERNELS = ("cf_weights", "cf_refine", "cf_aggregate", "lsh_hash")
 LSH_KERNELS = ("lsh_hash",)
 STORE_KERNELS = ("lsh_hash", "distance_topk", "knn_distance",
                  "refine_distances", "candidate_topk", "cf_weights",
-                 "cf_refine")
+                 "cf_refine", "cf_aggregate")
 LM_KERNELS = {"bucket_major": ("distance_topk", "agg_refine_attention"),
               "flat": ("distance_topk", "aggregated_attention_decode")}
 ATTN_KERNELS = ("agg_refine_attention", "aggregated_attention_decode")
@@ -565,6 +569,8 @@ REPLACES = {
     "lsh_hash": "src/repro/kernels/lsh_hash.py:50",
     "cf_weights": "src/repro/kernels/cf_weights.py:70",
     "cf_refine": "src/repro/kernels/cf_refine.py:115",
+    "cf_aggregate": "none: src/repro/apps/cf.py leaves these segment sums "
+                    "to XLA",
     "agg_refine_attention": "src/repro/kernels/agg_refine.py:132",
     "aggregated_attention_decode":
         "src/repro/kernels/aggregated_attention.py:94",
@@ -725,6 +731,14 @@ def work(torch, op, args, kwargs):
         n_rows = int(torch.unique(rows[use]).numel())
         return (float((8.0 * co + 4.0 * rated)[use].sum(dtype=torch.float64)),
                 4 * 4 * nq * ni + 8 * n_rows * ni + 9 * nq * nb)
+    if op == "cf_aggregate":
+        # ratings and mask read once, the means, order and offsets once,
+        # the four [K, I] sums written once; per user and item three
+        # products, a difference and four sums (8 operations)
+        r, _, _, order, offsets = args
+        nu, ni = r.shape
+        k = offsets.shape[0] - 1
+        return 8.0 * nu * ni, 4 * (2 * nu * ni + 2 * nu + k + 1 + 4 * k * ni)
     if op == "agg_refine_attention":
         # the live rows of the selected buckets: each distinct (sequence,
         # bucket) read once, every selection slot computed (2 G (dk + dv)
@@ -885,6 +899,17 @@ def check_kernel(torch, ref, topk_stream, ops, op, args, kwargs):
     if op == "lsh_hash":
         return compare_lsh(torch, ref, ops.KERNELS[op], args, kwargs, got,
                            want)
+    if op == "cf_aggregate":
+        # the same products and the same order of every sum: the same bits
+        max_err = 0.0
+        for name, g, w in zip(("sr", "sr2", "s", "c"), got, want):
+            err = (g - w).abs()
+            max_err = max(max_err, float(err.max()) if err.numel() else 0.0)
+            if not torch.equal(g, w):
+                fail(f"cf_aggregate {name}: {int((g != w).sum())} entries "
+                     f"differ from the plain version's bits (max err "
+                     f"{max_err:.3e})")
+        return {"max_abs_err": max_err, **none}
     if op in CF_KERNELS:
         outs = (zip(("w", "num", "den"), got, want) if op == "cf_refine"
                 else [("w", got, want)])
@@ -937,8 +962,10 @@ def library_call(torch, op, args, kwargs):
     Timed as a yardstick only; the port never calls it.  None for
     distance_topk, refine_distances, lsh_hash (a product, then a floor),
     cf_weights (three masked products), cf_refine (a gather, then
-    reductions) and agg_refine_attention (a gather, then a softmax over
-    the selected rows)."""
+    reductions), cf_aggregate (products, gathers and segment_reduce: the
+    torch chain it replaces, which its plain version is) and
+    agg_refine_attention (a gather, then a softmax over the selected
+    rows)."""
     if op == "knn_distance":
         q, p = args
         return lambda: torch.cdist(q, p)
@@ -3143,7 +3170,8 @@ PIPE_TOL = 1e-4               # the reference check's gradient tolerance
 MESH_TRAIN = {"arch": "qwen3-8b", "steps": 4, "batch": 4, "seq": 64}
 MESH_TRAIN_TOL = 1e-5
 MESH_KERNELS = ("distance_topk", "candidate_topk", "knn_distance",
-                "refine_distances", "lsh_hash", "cf_weights", "cf_refine")
+                "refine_distances", "lsh_hash", "cf_weights", "cf_refine",
+                "cf_aggregate")
 
 
 def _mesh_sync(torch, dev):
@@ -3425,7 +3453,7 @@ def mesh_phase(torch, knn_data, cf_data, *, dev="cuda", ranks=MESH_RANKS,
     Checked against the single-process path on the same draws: the kNN
     labels (``run_accurateml``), the merged distances to the bit and the
     shuffle bytes (``MapReduce(mesh=None)`` over the 8 stacked shards),
-    CF's num, den and varsum within 2e-4, the seven kNN and CF kernels
+    CF's num, den and varsum within 2e-4, the eight kNN and CF kernels
     launched on every rank, the MoE layer against ``moe_dense``, the
     pipeline against ``sequential_reference``, the sharded train step
     against the single-rank one within 1e-5 and the checkpoint's restored
@@ -3628,7 +3656,7 @@ def print_mesh(summary, smi):
 
 # The kernels each of examples/torch_<name>.py launches on its path: all of
 # them and no other (PERF.md §6's "launched by" column).
-KNN_CF_KERNELS = KNN_KERNELS + CF_KERNELS[:2]
+KNN_CF_KERNELS = KNN_KERNELS + CF_KERNELS[:3]
 EXAMPLES = {
     "quickstart": KNN_CF_KERNELS,
     "cf_recommend": CF_KERNELS,
@@ -4099,6 +4127,7 @@ TOLS = {
     "cf_weights": f"rtol {CF_TOL} + atol {CF_TOL} on the weights",
     "cf_refine": f"rtol {CF_TOL} + atol {CF_TOL} on w, num and den, on the "
                  f"first {CF_CHECK_QUERIES} queries of each call",
+    "cf_aggregate": "sr, sr2, s and c equal to the plain version's bits",
     "lsh_hash": "hashes off by at most 1 on under 0.1 % of entries; ids "
                 "equal on every row whose hashes equal the plain ones, rows "
                 "with a flip under 0.1 %",
@@ -4113,8 +4142,8 @@ def kernel_row(torch, ref, topk_stream, ops, op, calls, counts, jobs, flush,
     """Check the kernel at every captured shape, ``calls`` and ``checked``
     ({key: (args, kwargs)}, checked and not timed), and time it at the
     shape of ``calls`` with the largest least time (lsh_hash, cf_weights,
-    distance_topk and the decode-attention kernels, whose shapes are
-    different stages or paths: at each shape); the row of the
+    cf_aggregate, distance_topk and the decode-attention kernels, whose
+    shapes are different stages or paths: at each shape); the row of the
     ``{"kernels": [...]}`` line."""
     summaries = [check_kernel(torch, ref, topk_stream, ops, op, args, kwargs)
                  for args, kwargs in [*calls.values(),
@@ -4122,7 +4151,8 @@ def kernel_row(torch, ref, topk_stream, ops, op, calls, counts, jobs, flush,
     ranked = sorted(calls.items(),
                     key=lambda c: -bound_ms(*work(torch, op, *c[1]))[0])
     timed = []
-    every = op in ("lsh_hash", "cf_weights", "distance_topk", *ATTN_KERNELS)
+    every = op in ("lsh_hash", "cf_weights", "cf_aggregate", "distance_topk",
+                   *ATTN_KERNELS)
     for key, (args, kwargs) in ranked if every else ranked[:1]:
         b_ms, b_by = bound_ms(*work(torch, op, args, kwargs))
         lib = library_call(torch, op, args, kwargs)
@@ -4167,15 +4197,16 @@ def kernel_row(torch, ref, topk_stream, ops, op, calls, counts, jobs, flush,
     return row
 
 
-def check_lsh_jobs(jobs):
-    """The LSH step runs on the kernel: one launch a shard in every
-    run_accurateml job, none in the jobs that build no aggregates (the
-    with_bound batch's are built before it is timed)."""
+def check_shard_jobs(jobs, op="lsh_hash"):
+    """The LSH step (``lsh_hash``) and CF's aggregation (``cf_aggregate``)
+    run on their kernels: one launch a shard in every run_accurateml job,
+    none in the jobs that build no aggregates (the with_bound batch's are
+    built before it is timed)."""
     for name, job in jobs.items():
         want = N_SHARDS if "run_accurateml" in name else 0
-        if job["launches"]["lsh_hash"] != want:
-            fail(f"{name}: {job['launches']['lsh_hash']} lsh_hash launches, "
-                 f"expected {want}")
+        if job["launches"][op] != want:
+            fail(f"{name}: {job['launches'][op]} {op} launches, expected "
+                 f"{want}")
 
 
 def check_launched(path, counts, kernels):
@@ -4238,7 +4269,7 @@ def main() -> int:
     print(json.dumps({"jobs": jobs, "accuracy": acc,
                       "shuffle_bytes": shuffle_bytes}))
     check_launched("kNN", counts_knn, KNN_KERNELS)
-    check_lsh_jobs(jobs)
+    check_shard_jobs(jobs)
     if acc["run_exact"] < 0.9:
         fail(f"exact accuracy {acc['run_exact']:.4f} < 0.9 on mixture data")
 
@@ -4260,7 +4291,8 @@ def main() -> int:
     print(json.dumps({"cf_jobs": cf_jobs_out, "rmse": rmse,
                       "rmse_loss": loss, "shuffle_bytes": cf_shuffle_bytes}))
     check_launched("CF", counts_cf, CF_KERNELS)
-    check_lsh_jobs(cf_jobs_out)
+    check_shard_jobs(cf_jobs_out)
+    check_shard_jobs(cf_jobs_out, "cf_aggregate")
 
     # ---- LSH hash phase ----
     n_s = train_x.shape[0] // N_SHARDS
@@ -4388,7 +4420,7 @@ def main() -> int:
                    holdout_split)
     lm_small_check(torch)
 
-    # ---- the training path and the supervisor (no kernel of the nine) ----
+    # ---- the training path and the supervisor (no kernel of the ten) ----
     probe.calls.clear()     # the kernels' captured inputs, checked above
     lm_probe.calls.clear()
     gc.collect()

@@ -100,18 +100,20 @@ class CFAggregates:
     cvar: torch.Tensor            # [K,I] centred 2nd moment of ratings (SS)
 
 
-def _cf_level(ratings, mask, centred, ids, n_buckets: int):
+def _cf_level(ratings, mask, means, ids, n_buckets: int):
     """The reference's five segment sums (sr, sr2, s, c and the user
-    counts) from one stable sort of the ids and one gather of each summed
-    [U,I] array, and the index of that sort: (stats, BucketIndex)."""
-    rated = ratings * mask
-    order, counts, (sr, sr2, s, c) = agg_lib.segment_sums(
-        (rated, rated * ratings, centred, mask), ids, n_buckets)
-    stats = {"counts": counts.to(torch.int32), "sr": sr, "sr2": sr2, "s": s,
-             "c": c}
+    counts) from one stable sort of the ids and one ``cf_aggregate`` pass
+    over the rating matrix in that order, and the index of that sort:
+    (stats, BucketIndex).  ``means`` [U,1] are the users' mean ratings
+    (``user_means``), which centre ``s``."""
+    order, counts = agg_lib._bucket_order(ids, n_buckets)
     index = agg_lib.BucketIndex(perm=order.to(torch.int32),
                                 offsets=agg_lib.bucket_offsets(counts),
                                 bucket_of=ids.to(torch.int32))
+    sr, sr2, s, c = kernel_ops.cf_aggregate(ratings, mask, means, index.perm,
+                                            index.offsets)
+    stats = {"counts": counts.to(torch.int32), "sr": sr, "sr2": sr2, "s": s,
+             "c": c}
     return stats, index
 
 
@@ -121,12 +123,11 @@ def build_cf_aggregates(
     """LSH-bucket users by centred rating profile; aggregate (§III-B)."""
     tracer = current_tracer()
     with tracer.span("map.lsh"):
-        centred = ref._centred(ratings, mask)
-        ids = lsh_lib.bucket_ids(centred, params)
+        means = user_means(ratings, mask)
+        ids = lsh_lib.bucket_ids((ratings - means) * mask, params)
     n_buckets = params.config.n_buckets
     with tracer.span("map.aggregate", n_buckets=n_buckets):
-        return cf_assemble(*_cf_level(ratings, mask, centred, ids,
-                                      n_buckets))
+        return cf_assemble(*_cf_level(ratings, mask, means, ids, n_buckets))
 
 
 def cf_mergeable_stats(
@@ -137,7 +138,7 @@ def cf_mergeable_stats(
     sums ``sr``, squared-rating sums ``sr2`` (the second moment behind the
     error bound), centred sums ``s``, rater counts ``c`` and the int32 user
     counts, all additive under bucket union."""
-    return _cf_level(ratings, mask, ref._centred(ratings, mask), fine_ids,
+    return _cf_level(ratings, mask, user_means(ratings, mask), fine_ids,
                      n_buckets)[0]
 
 

@@ -20,6 +20,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.agg_refine import agg_refine_attention_cuda
 from repro_torch.kernels.aggregated_attention import aggregated_attention_cuda
 from repro_torch.kernels.candidate_topk import candidate_topk_cuda
+from repro_torch.kernels.cf_aggregate import cf_aggregate_cuda
 from repro_torch.kernels.cf_refine import cf_refine_cuda
 from repro_torch.kernels.cf_weights import cf_weights_cuda
 from repro_torch.kernels.distance_topk import distance_topk_cuda
@@ -35,6 +36,7 @@ KERNELS = {
     "lsh_hash": lsh_hash_cuda,
     "cf_weights": cf_weights_cuda,
     "cf_refine": cf_refine_cuda,
+    "cf_aggregate": cf_aggregate_cuda,
     "agg_refine_attention": agg_refine_attention_cuda,
     "aggregated_attention_decode": aggregated_attention_cuda,
 }
@@ -69,8 +71,9 @@ def _on_card(t: torch.Tensor) -> bool:
 # When a probe is installed, every op call goes through
 # ``probe.timed(op_name, fn, args, kwargs)``; the probe synchronises the card
 # (torch.cuda.synchronize) around the calls it times.  With no probe the
-# wrappers cost one ``is None`` test.  The op labels are the JAX package's
-# and the keys of ``KERNELS``.
+# wrappers cost one ``is None`` test.  The op labels are the keys of
+# ``KERNELS``: the JAX package's, and ``cf_aggregate``, which replaces no
+# kernel of it.
 # ---------------------------------------------------------------------------
 
 _PROBE = None
@@ -199,6 +202,19 @@ def cf_refine(
                               shrink=shrink)
     return ref.cf_refine(active, active_mask, ratings, mask, idx, use,
                          shrink=shrink)
+
+
+@_probed("cf_aggregate")
+def cf_aggregate(
+    ratings: torch.Tensor, mask: torch.Tensor, means: torch.Tensor,
+    order: torch.Tensor, offsets: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """A CF map task's bucket statistics (sr, sr2, s, c), each [K,I]:
+    per bucket of ``order`` (users in stable bucket order, ``offsets`` the
+    K+1 bucket starts), the sums of r·m, (r·m)·r, (r − means)·m and m."""
+    if _on_card(ratings):
+        return cf_aggregate_cuda(ratings, mask, means, order, offsets)
+    return ref.cf_aggregate(ratings, mask, means, order, offsets)
 
 
 @_probed("agg_refine_attention")

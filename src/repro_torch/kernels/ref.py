@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.aggregate import segment_sums
+from repro_torch.core.aggregate import _run_sums, segment_sums
 from repro_torch.core.signature import wrapped_signature
 from repro_torch.kernels.topk_stream import BIG
 
@@ -127,6 +127,27 @@ def _user_means(ratings: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 def _centred(ratings: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Ratings centred on each user's mean, 0 where not rated. [U,I]."""
     return (ratings - _user_means(ratings, mask)) * mask
+
+
+def cf_aggregate(
+    ratings: torch.Tensor, mask: torch.Tensor, means: torch.Tensor,
+    order: torch.Tensor, offsets: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """A CF map task's bucket statistics (sr, sr2, s, c), each [K,I]: the
+    sums of r·m, (r·m)·r, (r − means)·m and m over each bucket's users.
+
+    [U,I],[U,I],[U,1], ``order`` [U] (users in stable bucket order) and
+    ``offsets`` [K+1] (bucket starts in that order).  The products, the
+    gathers into bucket order and ``torch.segment_reduce`` over each run,
+    each run summed from 0 in ``order``: the arithmetic of
+    ``core/aggregate.py:segment_sums``.
+    """
+    rated = ratings * mask
+    centred = (ratings - means) * mask
+    rows = order.long()
+    counts = offsets.diff().long()
+    return tuple(_run_sums(v[rows], counts)
+                 for v in (rated, rated * ratings, centred, mask))
 
 
 def cf_refine(

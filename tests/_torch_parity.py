@@ -195,6 +195,47 @@ def cf_sparse_inputs(seed, qn, un, ni, density, skew=0.0,
     return x[:qn], m[:qn], x[qn:], m[qn:]
 
 
+# (users, items, buckets, layout) of the cf_aggregate tests.  Layouts of
+# the bucket ids: drawn at random; even buckets only (the odd ones empty);
+# every user in one bucket; one user a bucket; over half the users in
+# bucket 0.  Item counts on and off a multiple of 4 and of the kernel's
+# 128-item tile; a single user.
+CF_AGGREGATE_CASES = [
+    (300, 700, 16, "random"), (257, 1001, 40, "empty"), (97, 130, 8, "one"),
+    (64, 515, 64, "each"), (1, 33, 3, "random"), (1, 128, 1, "one"),
+    (2000, 257, 20, "skewed"),
+]
+
+
+def cf_aggregate_inputs(seed, nu, ni, k, layout):
+    """Ratings, masks (values 0.5, 1 and 2; ``cf_sparse_inputs``' special
+    rows 0 and 1) and [nu] bucket ids in [0, k) of ``layout``."""
+    r = rng(seed)
+    _, _, x, m = cf_sparse_inputs(seed, 0, nu, ni, 0.2, 0.8,
+                                  (0.5, 1.0, 2.0))
+    ids = {
+        "random": lambda: r.integers(0, k, nu),
+        "empty": lambda: 2 * r.integers(0, (k + 1) // 2, nu),
+        "one": lambda: np.full(nu, k // 2),
+        "each": lambda: np.arange(nu) % k,
+        "skewed": lambda: np.where(r.random(nu) < 0.6, 0,
+                                   r.integers(0, k, nu)),
+    }[layout]()
+    return x, m, ids.astype(np.int32)
+
+
+def cf_aggregate_args(ratings, mask, ids, k):
+    """The arguments of ``ops.cf_aggregate`` as the CF map task makes them
+    from [U,I] ratings and masks and [U] bucket ids (tensors): the users'
+    means, the stable bucket order and the bucket starts, int32."""
+    from repro_torch.core import aggregate as agg_lib
+    from repro_torch.kernels import ref
+
+    order, counts = agg_lib._bucket_order(ids, k)
+    return (ratings, mask, ref._user_means(ratings, mask),
+            order.to(torch.int32), agg_lib.bucket_offsets(counts))
+
+
 # ---------------------------------------------------------------------------
 # chip_smoke.py's phases rehearsed on the CPU
 # ---------------------------------------------------------------------------
@@ -229,6 +270,7 @@ def plain_kernels(monkeypatch):
         "lsh_hash": ref.lsh_hash,
         "cf_weights": ref.cf_weights,
         "cf_refine": ref.cf_refine,
+        "cf_aggregate": ref.cf_aggregate,
         "agg_refine_attention": ref.agg_refine_attention,
         "aggregated_attention_decode":
             lambda q, k, v, bo, mk, mv, c, r, vl, *, scale:

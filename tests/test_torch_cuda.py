@@ -15,14 +15,16 @@ import pytest
 torch = pytest.importorskip("torch")  # the port's tests need PyTorch
 
 from _torch_parity import (
-    BATCHED_TOPK_CASES, BIG, CF_SPARSE_CASES, assert_close,
-    assert_topk_match, batched_inputs, candidates, cf_inputs,
-    cf_sparse_inputs, normal, np_of, rng, th, topk_inputs,
+    BATCHED_TOPK_CASES, BIG, CF_AGGREGATE_CASES, CF_SPARSE_CASES,
+    assert_close, assert_topk_match, batched_inputs, candidates,
+    cf_aggregate_args, cf_aggregate_inputs, cf_inputs, cf_sparse_inputs,
+    normal, np_of, rng, th, topk_inputs,
 )
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.agg_refine import agg_refine_attention_cuda
 from repro_torch.kernels.aggregated_attention import aggregated_attention_cuda
 from repro_torch.kernels.candidate_topk import candidate_topk_cuda
+from repro_torch.kernels.cf_aggregate import cf_aggregate_cuda
 from repro_torch.kernels.cf_refine import cf_refine_cuda
 from repro_torch.kernels.cf_weights import cf_weights_cuda
 from repro_torch.kernels.distance_topk import SMALL_MAX_N, distance_topk_cuda
@@ -419,6 +421,86 @@ def test_cuda_cf_kernels_give_the_same_bits_twice(cuda, op):
         run = (lambda: ops.cf_refine(*args, shrink=8.0))
     for one, two in zip(run(), run()):
         assert torch.equal(one, two)
+
+
+def _same_bits(got, want):
+    for g, w, name in zip(got, want, ("sr", "sr2", "s", "c")):
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        assert torch.equal(g, w), (
+            f"{name}: {int((g != w).sum())} entries differ, largest gap "
+            f"{float((g - w).abs().max()):.3e}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nu,ni,k,layout", CF_AGGREGATE_CASES)
+@pytest.mark.parametrize("offset", [0, 1])
+def test_cuda_cf_aggregate(cuda, nu, ni, k, layout, offset):
+    """The plain version's bits, at every bucket layout: empty buckets, one
+    bucket of every user, one user a bucket, a bucket of most users, one
+    user; item counts off a multiple of 4.  ``offset`` 1 starts the rows
+    one float past a 16-byte boundary (the kernel's one-float loads)."""
+    x, m, ids = _on(cuda, *cf_aggregate_inputs(nu + ni + k, nu, ni, k,
+                                               layout))
+    if offset:
+        x, m = (torch.empty(t.numel() + offset, device=cuda)[offset:]
+                .view(t.shape).copy_(t) for t in (x, m))
+    args = cf_aggregate_args(x, m, ids, k)
+    before = cf_aggregate_cuda.launches
+    got = ops.cf_aggregate(*args)
+    assert cf_aggregate_cuda.launches == before + 1
+    _same_bits(got, ref.cf_aggregate(*args))
+    _same_bits(ops.cf_aggregate(*args), got)
+
+
+@pytest.mark.cuda
+def test_cuda_cf_aggregate_at_the_cf_shard_shape(cuda):
+    """A map task of the CF cells: 6,002 users x 17,700 items at density
+    0.012 with Zipf item popularity, K 300, the buckets skewed; the plain
+    version's bits."""
+    g = torch.Generator(cuda).manual_seed(29)
+    nu, ni, k = 6002, 17_700, 300
+    pop = (1.0 + torch.arange(ni, device=cuda)) ** -0.8
+    pop = torch.clamp(pop / pop.mean() * 0.012, 0.0, 0.95)
+    mask = (torch.rand((nu, ni), generator=g, device=cuda) < pop).float()
+    ratings = torch.randint(1, 6, (nu, ni), generator=g,
+                            device=cuda).float() * mask
+    ids = (torch.rand(nu, generator=g, device=cuda) ** 3 * k).int()
+    args = cf_aggregate_args(ratings, mask, ids, k)
+    _same_bits(ops.cf_aggregate(*args), ref.cf_aggregate(*args))
+
+
+@pytest.mark.cuda
+def test_cuda_cf_aggregate_launches_once_a_map_task(cuda, monkeypatch):
+    """One launch a map task: 8 in a CF ``run_accurateml`` job of 8 map
+    tasks, none in its exact job or in a kNN job; no CUDA tensor reaches
+    the plain version."""
+    from repro_torch.apps import cf, knn
+
+    plain = ref.cf_aggregate
+
+    def cpu_only(*args):
+        assert all(a.device.type == "cpu" for a in args)
+        return plain(*args)
+
+    monkeypatch.setattr(ref, "cf_aggregate", cpu_only)
+    a, am, u, um = _on(cuda, *cf_sparse_inputs(8, 16, 800, 300, 0.1, 0.8))
+    ops.reset_launch_counts()
+    cf.run_accurateml(u, um, a, am, compression_ratio=20.0, eps_max=0.05,
+                      lsh_generator=torch.Generator(cuda).manual_seed(1),
+                      n_shards=8, device=cuda)
+    assert ops.launch_counts()["cf_aggregate"] == 8
+    cf.run_exact(u, um, a, am, n_shards=8, device=cuda)
+    assert ops.launch_counts()["cf_aggregate"] == 8
+    r = rng(9)
+    x, q = _on(cuda, normal(r, 4000, 16), normal(r, 32, 16))
+    y = torch.from_numpy(r.integers(0, 4, 4000).astype(np.int32)).to(cuda)
+    ops.reset_launch_counts()
+    knn.run_accurateml(x, y, q, k=5, n_classes=4, compression_ratio=20.0,
+                       eps_max=0.01,
+                       lsh_generator=torch.Generator(cuda).manual_seed(2),
+                       n_shards=8, device=cuda)
+    counts = ops.launch_counts()
+    assert counts["cf_aggregate"] == 0 and counts["lsh_hash"] == 8
 
 
 @pytest.mark.cuda
@@ -1246,4 +1328,4 @@ def test_examples_quickstart_launches_its_kernels_on_the_card(cuda):
     launched = {op for op, n in ops.launch_counts().items() if n}
     assert launched == {"distance_topk", "candidate_topk", "knn_distance",
                         "refine_distances", "lsh_hash", "cf_weights",
-                        "cf_refine"}
+                        "cf_refine", "cf_aggregate"}

@@ -16,8 +16,9 @@ import pytest
 torch = pytest.importorskip("torch")  # the port's tests need PyTorch
 
 from _torch_parity import (
-    BIG, assert_close, assert_topk_match, candidates, cf_inputs, normal,
-    np_of, rng, th, topk_inputs,
+    BIG, CF_AGGREGATE_CASES, assert_close, assert_topk_match, candidates,
+    cf_aggregate_args, cf_aggregate_inputs, cf_inputs, normal, np_of, rng,
+    th, topk_inputs,
 )
 from repro.kernels import ref as _jref
 from repro.kernels import topk_stream as jts
@@ -32,6 +33,7 @@ from repro.kernels.knn_distance import knn_distance_pallas
 from repro.kernels.lsh_hash import lsh_hash_pallas
 from repro.kernels.refine_distances import refine_distances_pallas
 from repro.kernels.topk_stream import candidate_topk_pallas
+from repro_torch.core import aggregate as agg_lib
 from repro_torch.core import lsh
 from repro_torch.kernels import ops, ref, refine_schedule, topk_stream
 from repro_torch.kernels.candidate_topk import candidate_topk_cuda
@@ -446,6 +448,63 @@ def test_cf_refine_clips_indices():
 
 
 # ---------------------------------------------------------------------------
+# cf_aggregate: CF's bucket statistics
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("nu,ni,k,layout", CF_AGGREGATE_CASES)
+def test_cf_aggregate_is_the_segment_sums_of_the_products(nu, ni, k, layout):
+    """On CPU tensors the op gives the bits of the sums it replaces: the
+    four [U,I] arrays (r·m, (r·m)·r, the centred ratings, m) summed by
+    ``segment_sums`` over one stable sort of the ids."""
+    x, m, ids = map(th, cf_aggregate_inputs(nu + ni + k, nu, ni, k, layout))
+    ops.reset_launch_counts()
+    got = ops.cf_aggregate(*cf_aggregate_args(x, m, ids, k))
+    rated = x * m
+    _, counts, want = agg_lib.segment_sums(
+        (rated, rated * x, ref._centred(x, m), m), ids, k)
+    for g, w, name in zip(got, want, ("sr", "sr2", "s", "c")):
+        assert g.shape == (k, ni) and g.dtype == torch.float32, name
+        assert torch.equal(g, w), name
+    assert ops.launch_counts()["cf_aggregate"] == 0
+    empty = counts == 0
+    assert all(bool((g[empty] == 0).all()) for g in got)
+
+
+def _bad_aggregate_args(what):
+    x, m, ids = map(th, cf_aggregate_inputs(3, 6, 9, 4, "random"))
+    args = list(cf_aggregate_args(x, m, ids, 4))
+    if what == "dtype":
+        args[0] = args[0].double()
+    elif what == "order_dtype":
+        args[3] = args[3].long()
+    elif what == "means_shape":
+        args[2] = args[2][:, 0]
+    elif what == "mask_shape":
+        args[1] = args[1][:, :-1].contiguous()
+    elif what == "strided":
+        args[0] = args[0].t().contiguous().t()
+    elif what == "no_offsets":
+        args[4] = args[4][:0]
+    return args
+
+
+@pytest.mark.parametrize("what,error,match", [
+    ("dtype", TypeError, "ratings: dtype"),
+    ("order_dtype", TypeError, "order: dtype"),
+    ("means_shape", ValueError, "means: shape"),
+    ("mask_shape", ValueError, "mask: shape"),
+    ("strided", ValueError, "ratings: must be contiguous"),
+    ("no_offsets", ValueError, "offsets: empty"),
+])
+def test_cf_aggregate_wrapper_refuses_what_the_kernel_does_not_take(
+        what, error, match):
+    ops.reset_launch_counts()
+    with pytest.raises(error, match=match):
+        ops.KERNELS["cf_aggregate"](*_bad_aggregate_args(what))
+    assert ops.launch_counts()["cf_aggregate"] == 0
+
+
+# ---------------------------------------------------------------------------
 # lsh_hash
 # ---------------------------------------------------------------------------
 
@@ -536,6 +595,8 @@ def _small_args():
                            {"base": 64, "factor": 4}),
         "cf_weights": ((a, am, u, um), {}),
         "cf_refine": ((a, am, u, um, idx, valid), {"shrink": 8.0}),
+        "cf_aggregate": (cf_aggregate_args(u, um, th(np.array(
+            [2, 0, 2, 1, 2, 0, 2, 1, 0, 2], np.int32)), 3), {}),
     }
 
 
@@ -552,7 +613,8 @@ def test_cpu_tensors_take_the_plain_versions():
 
 @pytest.mark.parametrize("name", ["knn_distance", "distance_topk",
                                   "candidate_topk", "refine_distances",
-                                  "lsh_hash", "cf_weights", "cf_refine"])
+                                  "lsh_hash", "cf_weights", "cf_refine",
+                                  "cf_aggregate"])
 def test_kernel_wrappers_refuse_cpu_tensors(name):
     args, kwargs = _small_args()[name]
     ops.reset_launch_counts()

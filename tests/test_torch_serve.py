@@ -1098,6 +1098,7 @@ def test_chip_smoke_serve_phase_runs_on_the_cpu(monkeypatch):
         "lsh_hash": ref.lsh_hash,
         "cf_weights": ref.cf_weights,
         "cf_refine": ref.cf_refine,
+        "cf_aggregate": ref.cf_aggregate,
         "agg_refine_attention": ref.agg_refine_attention,
         "aggregated_attention_decode":
             lambda q, k, v, bo, mk, mv, c, r, vl, *, scale:

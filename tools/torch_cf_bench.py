@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Times the port's two CF kernels at the CF path's shapes, on one NVIDIA
-GPU, for one source tree of the port.
+"""Times the port's CF kernels at the CF path's shapes, on one NVIDIA GPU,
+for one source tree of the port.
 
     python3 tools/torch_cf_bench.py [--src DIR] [--profile] [--small-check N]
 
@@ -17,7 +17,9 @@ kernels' inputs are captured from the path's own map tasks on shard 0:
   (``sampled_map`` at CF_SAMPLE_FRAC, permutation from seed 13) and stage
   1 against the shard's centroid profiles (``accurateml_map``);
 - ``cf_refine`` at eps 0.05 (``accurateml_map``, LSH from seed 11, as
-  ``run_accurateml`` draws shard 0's).
+  ``run_accurateml`` draws shard 0's);
+- ``cf_aggregate`` and ``lsh_hash`` in that map task's aggregation
+  (``build_cf_aggregates``), where the tree has them.
 
 Prints one JSON line: each entry's time with the head start, the same runs'
 time without it under ``"... no head start"``, its bound (``chip_smoke.py``'s
@@ -118,7 +120,7 @@ def main() -> int:
 
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
     for op in cs.CF_KERNELS:
-        for key, (call_args, kwargs) in probe.calls[op].items():
+        for key, (call_args, kwargs) in probe.calls.get(op, {}).items():
             wrapper = cs.kernel_fns(ops, ref, op, kwargs)[0]
             name = f"{op} {cs._shape(key, call_args, kwargs)}"
             out[name], out[f"{name} no head start"] = cs.bench_ms(
